@@ -1,0 +1,122 @@
+"""Package rules of the PyTorch port: it never imports JAX, and a CUDA tensor
+never silently takes a kernel's plain version."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from velocity_tpu_torch import cuda_build
+from velocity_tpu_torch.ops import lk_block_pallas, slab_pallas
+
+ROOT = Path(__file__).resolve().parent.parent
+
+MODULES = [
+    "velocity_tpu_torch",
+    "velocity_tpu_torch.convert",
+    "velocity_tpu_torch.cuda_build",
+    "velocity_tpu_torch.ops.harris",
+    "velocity_tpu_torch.ops.lk_lanes",
+    "velocity_tpu_torch.ops.ransac",
+    "velocity_tpu_torch.pipeline.anchor",
+    "velocity_tpu_torch.pipeline.scan",
+    "velocity_tpu_torch.pipeline.speedest",
+    "velocity_tpu_torch.pipeline.tracker",
+    "velocity_tpu_torch.solvers.pose",
+    "velocity_tpu_torch.solvers.triangulate",
+    "velocity_tpu_torch.testing.synthetic_clip",
+]
+
+
+def test_import_pulls_in_no_jax():
+    """A fresh interpreter that imports every port module has no jax,
+    jaxlib or velocity_tpu module loaded."""
+    code = ("import importlib, sys\n"
+            f"for m in {MODULES!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', 'velocity_tpu'))\n"
+            "print(','.join(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "", out.stdout
+
+
+def test_import_sets_true_f32():
+    import velocity_tpu_torch  # noqa: F401
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+
+class _OnCuda:
+    """Stands in for a CUDA tensor on a machine with no card and no nvcc."""
+
+    device = torch.device("cuda")
+    dtype = torch.float32
+    shape = (4, 24, 24)
+
+
+def _no_plain(*args, **kwargs):
+    raise AssertionError("a CUDA tensor must not take the plain version")
+
+
+def _no_nvcc():
+    raise RuntimeError("nvcc not found")
+
+
+def test_cuda_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
+    """Where the kernels cannot be built, a CUDA tensor handed to a wrapper
+    raises; neither wrapper falls back to its plain version."""
+    monkeypatch.setattr(slab_pallas, "extract_slabs_ref", _no_plain)
+    monkeypatch.setattr(lk_block_pallas, "block_iters_ref", _no_plain)
+    monkeypatch.setattr(cuda_build, "_lib", None)
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_nvcc", _no_nvcc)
+    x = _OnCuda()
+    with pytest.raises(RuntimeError, match="nvcc"):
+        slab_pallas.extract_slabs(x, x, x, 24)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        lk_block_pallas.lk_block(*([x] * 14), 0, win=15, n_taps=8, cubic=False,
+                                 eps=0.1, Wd=64, Hd=64)
+
+
+def test_other_devices_are_refused():
+    meta = torch.empty((30, 30), device="meta")
+    idx = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        slab_pallas.extract_slabs(meta, idx, idx, 24)
+
+
+def test_runner_refuses_cuda_without_a_card():
+    from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ScanSpeedRunner(device="cuda")
+
+
+def test_unported_options_raise():
+    """Options whose code is not ported yet raise, naming the ROADMAP item."""
+    from velocity_tpu_torch.config import PipelineConfig, TrackerConfig
+    from velocity_tpu_torch.pipeline.anchor import reanchor
+    from velocity_tpu_torch.pipeline.tracker import _check_backend
+
+    with pytest.raises(NotImplementedError, match="item 18"):
+        _check_backend(TrackerConfig(lk_backend="fast"))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        _check_backend(TrackerConfig(shard_features=2))
+    with pytest.raises(NotImplementedError, match="item 12"):
+        reanchor(PipelineConfig(anchor="ba"), None, 0.5, None, None, None, None, None)
+
+
+def test_library_name_follows_the_sources():
+    """The kernel library is keyed by a hash of csrc/*.cu and the flags."""
+    p = cuda_build.library_path()
+    assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libvt_kernels_")
+    assert sorted(s.name for s in cuda_build._sources()) == ["lk_block.cu", "slab.cu"]

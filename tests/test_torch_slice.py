@@ -1,0 +1,200 @@
+"""The port's scan path against the JAX package on one small synthetic clip
+(CPU): the frame-0 init, one fused frame step from the same state, and the
+whole ``ScanSpeedRunner.run``.
+
+The clip is 270x480, 8 frames; the runs use msv_frame=3, 128 features and
+64 RANSAC trials. RANSAC noise: the port is handed JAX's own Gumbel draws,
+so both sample the same hypotheses.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import velocity_tpu.ingest.native_loader as jax_native_loader
+import velocity_tpu.ingest.video as jax_video
+from velocity_tpu.camera.annotations import Annotation as JaxAnnotation
+from velocity_tpu.camera.database import camera_info as jax_camera_info
+from velocity_tpu.config import PipelineConfig as JaxPipelineConfig
+from velocity_tpu.config import SolverConfig as JaxSolverConfig
+from velocity_tpu.config import TrackerConfig as JaxTrackerConfig
+from velocity_tpu.pipeline.roi import inside_bbox
+from velocity_tpu.pipeline.scan import ScanSpeedRunner as JaxScanSpeedRunner
+from velocity_tpu.pipeline.speedest import SpeedEstimator as JaxSpeedEstimator
+from velocity_tpu.pipeline.tracker import frame_pyramids_jit as jax_frame_pyramids
+from velocity_tpu.pipeline.tracker import fused_frame_step_pyr as jax_step
+from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
+from velocity_tpu_torch.convert import state_from_numpy
+from velocity_tpu_torch.pipeline import tracker as port_tracker
+from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
+from velocity_tpu_torch.pipeline.speedest import _init_features, _init_geometry
+from velocity_tpu_torch.pipeline.tracker import fused_frame_step_pyr
+from velocity_tpu_torch.testing.synthetic_clip import render_clip
+
+torch.set_num_threads(1)
+
+N_FRAMES, WIDTH, HEIGHT = 8, 480, 270
+MSV, FEATURES, TRIALS = 3, 128, 64
+SCALE = 0.5
+
+CFG = PipelineConfig(solver=SolverConfig(dtype="float32"), msv_frame=MSV,
+                     tracker=TrackerConfig(max_features=FEATURES, ransac_trials=TRIALS))
+JCFG = JaxPipelineConfig(solver=JaxSolverConfig(dtype="float32"), msv_frame=MSV,
+                         tracker=JaxTrackerConfig(max_features=FEATURES, ransac_trials=TRIALS))
+
+
+@pytest.fixture(scope="module")
+def clip():
+    return render_clip(n_frames=N_FRAMES, width=WIDTH, height=HEIGHT, seed=0)
+
+
+def _jax_info(clip):
+    """The clip's CameraInfo as the JAX package's type (its intrinsics are JAX)."""
+    info = jax_camera_info("synthetic.MOV", "iPhone 6s", width=WIDTH, height=HEIGHT,
+                           fps=30.0, frame_count=N_FRAMES)
+    return dataclasses.replace(info, focal_pix=np.asarray(clip.reader.info.focal_pix))
+
+
+def _jax_gumbel(n_frames):
+    """JAX's RANSAC noise in the order the runner draws it: for frame j,
+    key_j = split(PRNGKey(0), n)[j]; stage 1 and stage 2 each split once."""
+    keys = jax.random.split(jax.random.PRNGKey(0), n_frames)
+    draws = []
+    for j in range(1, n_frames):
+        key, k1 = jax.random.split(keys[j])
+        key, k2 = jax.random.split(key)
+        for k in (k1, k2):
+            g = jax.random.gumbel(k, (TRIALS, FEATURES), dtype=jnp.float32)
+            draws.append(torch.as_tensor(np.array(g)))
+    return keys, draws
+
+
+def _inject(monkeypatch, draws):
+    """Hand the port's RANSAC the given noise, one draw per call, in order."""
+    real_ransac = port_tracker.estimate_affine_ransac
+
+    def ransac_with_jax_noise(*args, **kwargs):
+        kwargs["gumbel"] = draws.pop(0)
+        return real_ransac(*args, **kwargs)
+
+    monkeypatch.setattr(port_tracker, "estimate_affine_ransac", ransac_with_jax_noise)
+
+
+def test_frame0_init_matches_jax(clip):
+    """Harris + subpixel corners: the same set on valid lanes (order may
+    differ on equal responses) within 1e-3 px; plate solve and plane
+    backprojection (host f64) within 1e-9 m."""
+    gray = clip.reader.grays[0]
+    q = clip.annotation.q * SCALE
+    est = JaxSpeedEstimator(JCFG)
+    jp, jvalid, jboxa, jboxb = est._init_features(gray, q)
+    p, valid, boxa, boxb = _init_features(CFG, torch.as_tensor(gray), q)
+    assert (boxa, boxb) == (jboxa, jboxb)
+    np.testing.assert_array_equal(p[:4], jp[:4])
+    assert valid.sum() == jvalid.sum() and valid.sum() > 40
+    a, b = p[valid], jp[jvalid]
+    d = np.linalg.norm(a[:, None, :] - b[None, :, :], axis=2)
+    # each set lies within 1e-3 px of the other (refined corners may coincide)
+    assert d.min(axis=1).max() < 1e-3 and d.min(axis=0).max() < 1e-3
+
+    jt0, jp3, jres0 = est._init_geometry(_jax_info(clip), q, jp, jvalid, SCALE)
+    t0, p3, res0 = _init_geometry(CFG, clip.reader.info, q, jp, jvalid, SCALE)
+    np.testing.assert_allclose(t0, jt0, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(p3, jp3, rtol=0, atol=1e-9)
+    assert abs(res0 - jres0) < 1e-6
+
+
+def test_frame_step_matches_jax(clip, monkeypatch):
+    """One fused_frame_step_pyr from the JAX step's own inputs (carried over
+    by state_from_numpy): tracked points within 1e-3 px where both are
+    valid, >= 99% equal validity, the stage-3 affine within 1e-3 px where it
+    maps the valid points (its translation column alone extrapolates to the
+    image origin), the translation within 1e-3 relative and the residual
+    within 0.05 px."""
+    g0, g1 = clip.reader.grays[0], clip.reader.grays[1]
+    q = clip.annotation.q * SCALE
+    est = JaxSpeedEstimator(JCFG)
+    p, valid, boxa, _ = est._init_features(g0, q)
+    t0, p3, _ = est._init_geometry(_jax_info(clip), q, p, valid, SCALE)
+    vp = valid & inside_bbox(p, boxa)
+    intr = _jax_info(clip).intrinsics(scale=SCALE).astype(jnp.float32)
+    pyr, spyr = jax_frame_pyramids(jnp.asarray(g0), JCFG.tracker)
+    keys, draws = _jax_gumbel(2)
+    _inject(monkeypatch, draws)
+
+    want = jax_step(pyr, spyr, jnp.asarray(g1), jnp.asarray(p), jnp.asarray(valid),
+                    jnp.asarray(vp), jnp.asarray(p3, jnp.float32), intr, keys[1],
+                    JCFG.tracker, JCFG.solver, jnp.float32, jnp.asarray(t0, jnp.float32))
+    st = state_from_numpy(pyr=pyr, spyr=spyr, pts=p, vg=valid, vp=vp, t=t0, p3=p3,
+                          intr=intr)
+    got = fused_frame_step_pyr(st["pyr"], st["spyr"], torch.as_tensor(g1), st["pts"],
+                               st["vg"], st["vp"], st["p3"], st["intr"], None,
+                               CFG.tracker, CFG.solver, torch.float32, st["t"])
+    assert not draws
+    (_, _, jpts, jvg, jvp, jt, jres, jproj, jn2, jT) = want[:10]
+    (_, _, pts, vg, vp2, t, res, proj, n2, T) = got
+    jvg = np.asarray(jvg)
+    assert (vg.numpy() == jvg).mean() >= 0.99
+    both = vg.numpy() & jvg
+    np.testing.assert_allclose(pts.numpy()[both], np.asarray(jpts)[both], rtol=0, atol=1e-3)
+    assert abs(int(n2) - int(jn2)) <= 1
+    src = p[valid].astype(np.float64)
+
+    def mapped(M):
+        M = np.asarray(M, np.float64)
+        return src @ M[:, :2].T + M[:, 2]
+
+    np.testing.assert_allclose(mapped(T.numpy()), mapped(jT), rtol=0, atol=1e-3)
+    assert np.linalg.norm(t.numpy() - np.asarray(jt)) <= 1e-3 * np.linalg.norm(np.asarray(jt))
+    assert abs(float(res) - float(jres)) < 0.05
+
+
+class _JaxReader:
+    """The synthetic clip behind the JAX package's VideoReader interface."""
+
+    def __init__(self, clip):
+        self.info = _jax_info(clip)
+        self._clip = clip
+
+    def frames(self, *args, **kwargs):
+        return self._clip.reader.frames(*args, **kwargs)
+
+    prefetch = frames
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
+
+def _no_native_loader(*args, **kwargs):
+    raise OSError("frames come from the synthetic clip")
+
+
+def test_scan_run_matches_jax(clip, monkeypatch):
+    """The whole ScanSpeedRunner.run, JAX on its own frames through a
+    patched VideoReader, the port on the same clip with JAX's RANSAC noise:
+    speed within 0.5%, per-frame translations within 1e-3 relative, mean
+    residual within 0.05 px."""
+    monkeypatch.setattr(jax_video, "VideoReader", lambda *a, **k: _JaxReader(clip))
+    monkeypatch.setattr(jax_native_loader, "NativeVideoStream", _no_native_loader)
+    ann = clip.annotation
+    want = JaxScanSpeedRunner(JCFG).run(
+        "synthetic.MOV", annotation=JaxAnnotation(ann.q, ann.fname, ann.start_frame),
+        n_frames=N_FRAMES, verbose=False)
+
+    _, draws = _jax_gumbel(N_FRAMES)
+    _inject(monkeypatch, draws)
+    got = ScanSpeedRunner(CFG, device="cpu").run(clip.reader, annotation=ann,
+                                                  n_frames=N_FRAMES, verbose=False)
+    assert not draws
+    assert abs(got.speed_kmh - want.speed_kmh) <= 0.005 * want.speed_kmh
+    dt = np.linalg.norm(got.B[1:, 3:6] - want.B[1:, 3:6], axis=1)
+    assert (dt <= 1e-3 * np.linalg.norm(want.B[1:, 3:6], axis=1)).all(), dt
+    assert abs(got.residual_px - want.residual_px) <= 0.05
+    assert abs(got.speed_kmh - clip.speed_kmh) <= 0.15 * clip.speed_kmh

@@ -1,0 +1,26 @@
+"""velocity_tpu_torch — the PyTorch/CUDA port of velocity_tpu.
+
+The scan speed-estimation path (``pipeline.scan.ScanSpeedRunner``) runs end
+to end on an NVIDIA Hopper GPU. Plain tensor code is PyTorch; the two TPU
+kernels of that path are CUDA C++ under ``csrc/`` (built with nvcc for
+sm_90a at first use, loaded with ctypes, see ``cuda_build``):
+
+- K2, slab extraction (``ops/slab_pallas.py``), replacing
+  ``velocity_tpu/ops/slab_pallas.py:extract_slabs_dma``;
+- K1, the fused LK iteration block (``ops/lk_block_pallas.py``), replacing
+  ``velocity_tpu/ops/lk_block_pallas.py:lk_block``.
+
+Module names follow ``velocity_tpu`` one to one. This package never imports
+jax or velocity_tpu; the tests import both and compare them.
+"""
+
+__version__ = "0.1.0"
+
+import torch as _torch
+
+# SfM correctness requires true-f32 arithmetic: reduced-precision matmuls or
+# convolutions inject ~5 px projection error on distant points (the same
+# reason velocity_tpu sets jax_default_matmul_precision="highest").
+_torch.set_float32_matmul_precision("highest")
+_torch.backends.cuda.matmul.allow_tf32 = False
+_torch.backends.cudnn.allow_tf32 = False

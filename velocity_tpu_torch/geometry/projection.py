@@ -1,0 +1,74 @@
+"""Pinhole projection, plane backprojection and pixel->ray conversion.
+
+Torch twin of ``velocity_tpu/geometry/projection.py``. ``Intrinsics`` holds
+0-d tensors; ``.to(dtype, device)`` moves all five at once.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from velocity_tpu_torch.geometry.norms import unit_rows
+from velocity_tpu_torch.geometry.spherical import cam_to_ned_matrix, elevation_azimuth
+
+
+class Intrinsics(NamedTuple):
+    """Pinhole intrinsics; every entry is a 0-d tensor."""
+
+    fx: torch.Tensor
+    fy: torch.Tensor
+    cx: torch.Tensor
+    cy: torch.Tensor
+    skew: torch.Tensor
+
+    def to(self, dtype=None, device=None):
+        return Intrinsics(*(torch.as_tensor(v).to(dtype=dtype, device=device) for v in self))
+
+
+def project_camera_points(intr: Intrinsics, pc):
+    """Project camera-frame points (..., 3) to pixels (..., 2)."""
+    X, Y, Z = pc[..., 0], pc[..., 1], pc[..., 2]
+    iz = 1.0 / Z
+    u = (intr.fx * X + intr.skew * Y) * iz + intr.cx
+    v = intr.fy * Y * iz + intr.cy
+    return torch.stack([u, v], dim=-1)
+
+
+def world_to_image(intr: Intrinsics, C, t, pw):
+    """Pixels of world points ``pw`` through pose (C, t): ``pw @ C + t``."""
+    return project_camera_points(intr, pw @ C + t)
+
+
+def image_to_world_plane(intr: Intrinsics, C, t, p):
+    """Backproject pixels (..., 2) to the world z=0 plane -> (..., 2) world xy.
+
+    Normalizes pixels first and inverts only the O(1)-conditioned plane
+    homography ``M = [[C0], [C1], [t]]`` (see the JAX twin for why).
+    """
+    dtype = p.dtype
+    yn = (p[..., 1] - intr.cy) / intr.fy
+    xn = (p[..., 0] - intr.cx - intr.skew * yn) / intr.fx
+    ph = torch.stack([xn, yn, torch.ones_like(xn)], dim=-1)
+    M = torch.cat([C[0:2, :], t[None, :]], dim=0)
+    pw = ph @ torch.linalg.inv(M.to(dtype))
+    return pw[..., 0:2] / pw[..., 2:3]
+
+
+def pixel_to_unit_ray(intr: Intrinsics, p):
+    """Pixels (..., 2) -> unit camera rays (..., 3); z = fx, as the reference."""
+    x = p[..., 0] - intr.cx
+    y = p[..., 1] - intr.cy
+    z = torch.ones_like(x) * intr.fx
+    return unit_rows(torch.stack([x, y, z], dim=-1))
+
+
+def pixel_to_angle(intr: Intrinsics, p):
+    """Pixels (..., 2) -> NED [elevation, azimuth] angles (..., 2)."""
+    x = p[..., 0] - intr.cx
+    y = p[..., 1] - intr.cy
+    z = torch.ones_like(x) * intr.fx
+    v_cam = torch.stack([x, y, z], dim=-1)
+    v_ned = v_cam @ cam_to_ned_matrix(v_cam.dtype, v_cam.device).T
+    return elevation_azimuth(v_ned)

@@ -1,0 +1,344 @@
+"""The lanes LK engine, points-major (torch twin of ``velocity_tpu/ops/lk_lanes.py``).
+
+Same algorithm as the JAX engine, which matches cv2.calcOpticalFlowPyrLK:
+Scharr-smoothed gradients of the source window, iterations in blocks of
+BLOCK_ITERS that re-extract the destination slab at the current estimates
+(so a point can travel arbitrarily far), eps and oscillation stopping,
+min-eigenvalue and bounds status gates, and the stage-3 affine warp of the
+destination (or, on the backward leg, of the source) by a separable two-pass
+stencil.
+
+The JAX engine puts the point axis last, on the TPU's 128 lanes. Here every
+patch tensor is points-major, ``(N, P, P)``: one point's slab is contiguous,
+which is what a thread block per point reads. Public functions keep JAX's
+layouts (points ``(N, 2)``). The two kernel hooks sit where the JAX engine
+calls Pallas: ``_extract_slabs`` (K2) and the block update in
+``_level_loop`` (K1).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from velocity_tpu_torch.ops.lk import LKResult, _affine_for_level
+from velocity_tpu_torch.ops.lk_block_pallas import (  # noqa: F401
+    BLOCK_ITERS,
+    REACH,
+    _sample_taps,
+    _w_linear,
+    block_iters_ref,
+    lk_block,
+)
+from velocity_tpu_torch.ops.pyramid import build_pyramid
+from velocity_tpu_torch.ops.slab_pallas import extract_slabs
+
+# Tap count of the warped-extraction stencil (see the JAX twin).
+WARP_TAPS = 8
+
+
+def _round8(x: int) -> int:
+    return (x + 7) & ~7
+
+
+def _pad_edge(img, pad: int):
+    """Edge-pad by ``pad`` on every side."""
+    return F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+
+
+def _extract_slabs(img, corners, size: int):
+    """(N, size, size) integer-corner slabs, points-major, through K2.
+
+    Corners (N, 2) xy clamp into the image. Returns (slabs, clamped corners
+    (N, 2) xy). Callers edge-pad ``img`` (and offset ``corners`` by the pad)
+    so that in-bounds points never clamp: a clamped corner shifts the slab
+    content relative to the stencil anchor and corrupts every sample.
+    """
+    H, W = img.shape
+    if H < size or W < size:
+        img = F.pad(img[None, None], (0, max(0, size - W), 0, max(0, size - H)),
+                    mode="replicate")[0, 0]
+        H, W = img.shape
+    cy = torch.clamp(corners[:, 1], 0, H - size).to(torch.int32).contiguous()
+    cx = torch.clamp(corners[:, 0], 0, W - size).to(torch.int32).contiguous()
+    slabs = extract_slabs(img.contiguous(), cx, cy, size)
+    return slabs, torch.stack([cx, cy], dim=1)
+
+
+def _grad_xy(patch):
+    """Scharr-smoothed central-difference gradients of an (N, P, P) patch."""
+    P = patch.shape[1]
+    p = F.pad(patch[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
+    rm, r0, rp = p[:, 0:P, 1:1 + P], p[:, 1:1 + P, 1:1 + P], p[:, 2:2 + P, 1:1 + P]
+    sv = (3.0 * rm + 10.0 * r0 + 3.0 * rp) * (1.0 / 16.0)
+    cm, c0, cp = p[:, 1:1 + P, 0:P], p[:, 1:1 + P, 1:1 + P], p[:, 1:1 + P, 2:2 + P]
+    sh = (3.0 * cm + 10.0 * c0 + 3.0 * cp) * (1.0 / 16.0)
+    pv = F.pad(sv[:, None], (1, 1, 0, 0), mode="replicate")[:, 0]
+    gx = (pv[:, :, 2:2 + P] - pv[:, :, 0:P]) * 0.5
+    ph = F.pad(sh[:, None], (0, 0, 1, 1), mode="replicate")[:, 0]
+    gy = (ph[:, 2:2 + P] - ph[:, 0:P]) * 0.5
+    return gx, gy
+
+
+def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
+    """(N, P, P) patches of the (pre-padded) image sampled through affine M.
+
+    The destination grid for output (i, j) of point n is
+    ``centers[:, n] + (j - oo, i - oo)``. Bilinear interpolation factors into
+    an x-pass per source row and a y-pass, each a WARP_TAPS-tap stencil over
+    one axis-aligned slab per point (see the JAX twin for the derivation).
+    ``imgp`` must be edge-padded by ``pad`` >= slab size. Returns (patches,
+    fractional window corner (2, N)).
+    """
+    dtype = centers.dtype
+    dev = centers.device
+    cx, cy = centers[0], centers[1]
+    base_x = M[0, 0] * cx + M[0, 1] * cy + M[0, 2]
+    base_y = M[1, 0] * cx + M[1, 1] * cy + M[1, 2]
+    ms = WARP_TAPS // 2 - 1
+    Q = _round8(P + WARP_TAPS)
+
+    kx = torch.floor(base_x).to(torch.int32) - oo - ms + pad
+    ky = torch.floor(base_y).to(torch.int32) - oo - ms + pad
+    slab, K = _extract_slabs(imgp, torch.stack([kx, ky], dim=1), Q)  # (N, Q, Q)
+    bx_s = base_x + float(pad) - K[:, 0].to(dtype)  # slab coords of the centre's image
+    by_s = base_y + float(pad) - K[:, 1].to(dtype)
+
+    idx = torch.arange(P, dtype=dtype, device=dev)
+    joff = (idx - oo)[None, None, :]  # centred dest column offsets
+    ioff = (idx - oo)[None, :, None]
+    jj = idx[None, None, :]
+    ii = idx[None, :, None]
+    # near-identity precondition: the x-pass solves the dest row through M11
+    m11 = M[1, 1]
+    inv_m11 = torch.where(torch.abs(m11) > 1e-3, 1.0 / m11, torch.ones_like(m11))
+
+    # x-pass positions (N, Q, P), relative to the identity slab column j
+    yy = torch.arange(Q, dtype=dtype, device=dev)[None, :, None]
+    ex = (
+        bx_s[:, None, None]
+        + M[0, 0] * joff
+        + (M[0, 1] * inv_m11) * (yy - by_s[:, None, None] - M[1, 0] * joff)
+        - jj
+    )
+    ex = torch.clamp(ex, 0.0, WARP_TAPS - 1.0)
+    H = None
+    for dx in range(WARP_TAPS):
+        w = _w_linear(ex - dx)
+        sl = slab[:, :, dx:dx + P]
+        H = w * sl if H is None else H + w * sl
+
+    # y-pass positions (N, P, P), relative to the identity row i
+    ey = by_s[:, None, None] + M[1, 0] * joff + M[1, 1] * ioff - ii
+    ey = torch.clamp(ey, 0.0, WARP_TAPS - 1.0)
+    out = None
+    for dy in range(WARP_TAPS):
+        w = _w_linear(ey - dy)
+        sl = H[:, dy:dy + P, :]
+        out = w * sl if out is None else out + w * sl
+
+    corner = torch.stack([cx - oo, cy - oo], dim=0)
+    return out, corner
+
+
+def _level_loop(
+    dimg,
+    pts0,  # (2, N) current estimates at this level's scale
+    trackable,
+    Ip,
+    gxp,
+    gyp,
+    a11,
+    a12,
+    a22,
+    inv_det,
+    *,
+    win: int,
+    iters: int,
+    eps: float,
+    warp=None,
+    dtype=torch.float32,
+):
+    """Blocked LK iteration loop, shared by plain and warped destinations.
+
+    Each block (re)extracts destination patches anchored at the current
+    estimates, then runs BLOCK_ITERS updates (K1). The loop exits once no
+    trackable point is left undone; the blocks it skips would change
+    nothing, since only active (trackable, not done) points move.
+    """
+    N = pts0.shape[1]
+    Hd, Wd = dimg.shape
+    cubic = warp is not None
+    if cubic:
+        oo = (win - 1) // 2 + REACH + 1  # anchor offset o0 = REACH+1, range +-REACH
+        P = _round8(win + 2 * REACH + 3)
+        n_taps = 2 * REACH + 4
+        Q = _round8(P + WARP_TAPS)
+        imgp = _pad_edge(dimg, Q)
+    else:
+        margin = REACH  # o0 = REACH + frac, range ~ +-REACH
+        P = _round8(win + 2 * REACH + 1)
+        n_taps = 2 * REACH + 2
+        # edge-pad once per level so corner clamping can never shift slab
+        # content off the stencil anchor: every point inside the in_ok bound
+        # lands fully inside the padded image
+        dimgp = _pad_edge(dimg, P)
+    n_blocks = max(1, -(-iters // BLOCK_ITERS))
+
+    pts = pts0.contiguous()
+    done = torch.zeros(N, dtype=torch.bool, device=pts.device)
+    prev_delta = torch.zeros((2, N), dtype=dtype, device=pts.device)
+    for blk in range(n_blocks):
+        if not bool(torch.any(trackable & ~done)):
+            break
+        if warp is None:
+            ci = torch.floor(pts).to(torch.int32)
+            corners = torch.stack([ci[0] - (win - 1) // 2 - margin + P,
+                                   ci[1] - (win - 1) // 2 - margin + P], dim=1)
+            dpatch, dcorner = _extract_slabs(dimgp, corners, P)
+            bx = (P - dcorner[:, 0]).to(dtype).contiguous()  # image corner = dcorner - P
+            by = (P - dcorner[:, 1]).to(dtype).contiguous()
+        else:
+            dpatch, corner = _extract_warped_lanes(imgp, Q, pts, P, warp, oo)
+            bx = (-corner[0]).contiguous()
+            by = (-corner[1]).contiguous()
+        pts, done, prev_delta = lk_block(
+            dpatch.contiguous(), Ip, gxp, gyp, a11, a12, a22, inv_det, bx, by,
+            trackable, pts, done, prev_delta, blk * BLOCK_ITERS,
+            win=win, n_taps=n_taps, cubic=cubic, eps=eps, Wd=Wd, Hd=Hd,
+        )
+    return pts
+
+
+def lk_pyramidal_lanes(
+    src_img,
+    dst_img,
+    pts_src,
+    guess=None,
+    *,
+    win: int = 15,
+    max_level: int = 4,
+    iters: int = 10,
+    eps: float = 0.1,
+    min_eig_threshold: float = 1e-4,
+    warp_dst=None,
+    warp_src=None,
+    src_pyr=None,
+    dst_pyr=None,
+) -> LKResult:
+    """Pyramidal LK of ``pts_src`` (N, 2) from ``src_img`` into ``dst_img``.
+
+    ``warp_dst`` samples destination patches through the affine (stage-3
+    fine tracking); ``warp_src`` warps the source side instead (the backward
+    leg of forward-backward gating with a warp). ``src_pyr``/``dst_pyr``:
+    prebuilt pyramids (>= max_level+1 levels), built once per frame.
+    """
+    dtype = pts_src.dtype if pts_src.is_floating_point() else torch.float32
+    pts_src = pts_src.to(dtype)
+    if src_pyr is None:
+        src_pyr = build_pyramid(src_img.to(dtype), max_level)
+    if dst_pyr is None:
+        dst_pyr = build_pyramid(dst_img.to(dtype), max_level)
+
+    N = pts_src.shape[0]
+    dev = pts_src.device
+    half = (win - 1) * 0.5
+    eig_thresh = torch.tensor(min_eig_threshold * 1024.0, dtype=dtype, device=dev)
+    tiny16 = torch.tensor(torch.finfo(dtype).tiny * 16, dtype=dtype, device=dev)
+
+    ptsT = pts_src.T  # (2, N)
+    cur = (guess if guess is not None else pts_src).to(dtype).T
+    cur = cur * (1.0 / (1 << max_level))
+    status = torch.ones(N, dtype=torch.bool, device=dev)
+
+    src_margin = 2  # gradient + bilinear support around the source window
+
+    for level in range(max_level, -1, -1):
+        simg, dimg = src_pyr[level], dst_pyr[level]
+        Hs, Ws = simg.shape
+        scale = 1.0 / (1 << level)
+        Md = _affine_for_level(warp_dst, level, dtype)
+        Ms = _affine_for_level(warp_src, level, dtype)
+        p_l = ptsT * scale
+        cx, cy = p_l[0], p_l[1]
+
+        src_ok = (
+            (torch.floor(cx - half) >= -win) & (torch.floor(cy - half) >= -win)
+            & (torch.floor(cx - half) < Ws) & (torch.floor(cy - half) < Hs)
+        )
+
+        # ---- source window: one extraction, fixed fractional sample ----
+        if Ms is None:
+            Ps = _round8(win + 2 * src_margin + 1)
+            simgp = _pad_edge(simg, Ps)  # no-clamp guarantee (see _extract_slabs)
+            ci = torch.floor(p_l).to(torch.int32)
+            corners = torch.stack([ci[0] - (win - 1) // 2 - src_margin + Ps,
+                                   ci[1] - (win - 1) // 2 - src_margin + Ps], dim=1)
+            spatch, scorner = _extract_slabs(simgp, corners, Ps)
+            su = cx - half - (scorner[:, 0] - Ps).to(dtype)
+            sv = cy - half - (scorner[:, 1] - Ps).to(dtype)
+            s_taps, s_cubic = src_margin + 2, False
+        else:
+            oo_s = (win - 1) // 2 + REACH + 1
+            Psw = _round8(win + 2 * REACH + 3)
+            Qs = _round8(Psw + WARP_TAPS)
+            simgp = _pad_edge(simg, Qs)
+            spatch, scorner2 = _extract_warped_lanes(simgp, Qs, p_l, Psw, Ms, oo_s)
+            su = cx - half - scorner2[0]
+            sv = cy - half - scorner2[1]
+            s_taps, s_cubic = REACH + 4, True  # fixed offset o0 = REACH+1
+        sgx, sgy = _grad_xy(spatch)
+        Ip = _sample_taps(spatch, sv, su, win, s_taps, cubic=s_cubic)
+        gxp = _sample_taps(sgx, sv, su, win, s_taps, cubic=s_cubic)
+        gyp = _sample_taps(sgy, sv, su, win, s_taps, cubic=s_cubic)
+
+        a11 = torch.sum(gxp * gxp, dim=(1, 2))
+        a12 = torch.sum(gxp * gyp, dim=(1, 2))
+        a22 = torch.sum(gyp * gyp, dim=(1, 2))
+        det = a11 * a22 - a12 * a12
+        tr = a11 + a22
+        min_eig = (tr - torch.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) * 0.5 / (win * win)
+        eig_ok = (min_eig >= eig_thresh) & (det >= tiny16)
+        trackable = src_ok & eig_ok
+        if level == 0:
+            status = status & trackable
+        inv_det = torch.where(det != 0, 1.0 / det, torch.zeros_like(det))
+
+        cur = _level_loop(
+            dimg, cur, trackable, Ip, gxp, gyp, a11, a12, a22, inv_det,
+            win=win, iters=iters, eps=eps, warp=Md, dtype=dtype,
+        )
+
+        if level == 0:
+            Hd, Wd = dimg.shape
+            inx = torch.floor(cur[0] - half)
+            iny = torch.floor(cur[1] - half)
+            status = status & (inx >= -win) & (iny >= -win) & (inx < Wd) & (iny < Hd)
+        else:
+            cur = cur * 2.0
+
+    return LKResult(points=cur.T, status=status)
+
+
+def lk_forward_backward_lanes(
+    src_img, dst_img, pts_src, *, fb_threshold=None, warp_dst=None, guess=None,
+    src_pyr=None, dst_pyr=None, **kw
+) -> LKResult:
+    """Forward + backward LK with forward-backward gating. With a
+    destination warp, the backward leg warps its *source* side, so both legs
+    live in source-frame coordinates."""
+    fwd = lk_pyramidal_lanes(src_img, dst_img, pts_src, guess=guess,
+                             warp_dst=warp_dst, src_pyr=src_pyr,
+                             dst_pyr=dst_pyr, **kw)
+    if fb_threshold is None:
+        return fwd
+    if warp_dst is None:
+        bwd = lk_pyramidal_lanes(dst_img, src_img, fwd.points, guess=fwd.points,
+                                 src_pyr=dst_pyr, dst_pyr=src_pyr, **kw)
+    else:
+        bwd = lk_pyramidal_lanes(dst_img, src_img, fwd.points, guess=fwd.points,
+                                 warp_src=warp_dst, src_pyr=dst_pyr,
+                                 dst_pyr=src_pyr, **kw)
+    fbe = torch.sqrt(torch.sum((pts_src - bwd.points) ** 2, dim=1))
+    ok = fwd.status & bwd.status & (fbe < fb_threshold)
+    return LKResult(points=fwd.points, status=ok)

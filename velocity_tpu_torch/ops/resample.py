@@ -1,0 +1,55 @@
+"""Separable image resampling as stencils (cv2 semantics).
+
+Torch twin of ``velocity_tpu/ops/resample.py``. The JAX package writes these
+as MXU matmuls with banded operator matrices, a TPU choice; on a GPU the
+natural form is the separable stencil: pad, strided slices and adds, in
+true f32 (no matmul, no cuDNN convolution, so TF32 cannot creep in).
+
+- ``pyr_down``: cv2.pyrDown -- 5-tap [1,4,6,4,1]/16 Gaussian, reflect-101
+  borders, decimation at even indices, output ((h+1)//2, (w+1)//2).
+- ``resize_nearest``: cv2.resize INTER_NEAREST, src = min(floor(i/s), n-1).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+_G5 = (1.0 / 16.0, 4.0 / 16.0, 6.0 / 16.0, 4.0 / 16.0, 1.0 / 16.0)
+
+
+def _float(img):
+    return img if img.is_floating_point() else img.to(torch.float32)
+
+
+def _down_axis(xp, m: int, dim: int):
+    """5-tap stencil at even centres along ``dim`` of a reflect-padded array."""
+    out = None
+    for t, k in enumerate(_G5):
+        sl = xp.narrow(dim, t, 2 * m - 1)
+        sl = sl[::2] if dim == 0 else sl[:, ::2]
+        out = k * sl if out is None else out + k * sl
+    return out
+
+
+def pyr_down(img):
+    """One Gaussian pyramid level down (cv2.pyrDown semantics)."""
+    x = _float(img)
+    H, W = x.shape
+    h2, w2 = (H + 1) // 2, (W + 1) // 2
+    xp = F.pad(x[None, None], (2, 2, 2, 2), mode="reflect")[0, 0]
+    v = _down_axis(xp, h2, 0)  # vertical pass first, as the JAX R @ X @ C^T
+    return _down_axis(v, w2, 1)
+
+
+def resize_nearest(img, scale: float):
+    """cv2.resize INTER_NEAREST with fx=fy=scale; keeps the input dtype."""
+    H, W = img.shape
+    h = int(round(H * scale))
+    w = int(round(W * scale))
+    rows = np.minimum(np.floor(np.arange(h) / scale).astype(np.int64), H - 1)
+    cols = np.minimum(np.floor(np.arange(w) / scale).astype(np.int64), W - 1)
+    dev = img.device
+    out = img.index_select(0, torch.as_tensor(rows, device=dev))
+    return out.index_select(1, torch.as_tensor(cols, device=dev))

@@ -1,0 +1,133 @@
+"""Scale-transfer re-anchoring of the structure once baseline accumulates.
+
+Torch twin of ``velocity_tpu/pipeline/anchor.py``, MSV strategy: the
+reference's multi-view ray-intercept triangulation plus Gauss-Newton over the
+newest camera (fcnMSV1_t), preceded by the frame-0 planar-pose
+disambiguation. It runs on the host CPU in float64, once per video, as in the
+JAX design (triangulating distant background features amplifies noise).
+The bundle-adjustment strategy (``anchor="ba"``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from velocity_tpu_torch.config import PipelineConfig
+from velocity_tpu_torch.solvers.triangulate import msv_refine_translation
+
+F64 = torch.float64
+
+
+def resolve_plate_pose(intr64, q, track_px, cfg: PipelineConfig):
+    """Pick the branch of the frame-0 planar plate pose that the early
+    tracks support.
+
+    For each candidate pose, backproject the frame-0 plate-box features onto
+    its plate plane, re-solve the per-frame translations (numpy twin of the
+    device solve, with its robust second pass) and keep the branch with the
+    lower mean reprojection rms. Returns (pose0, p3_plate (N,3),
+    t_track (k+1,3), res_track (k+1,)), t_track[0] = 0.
+    """
+    from velocity_tpu_torch.geometry.plate import license_plate_points
+    from velocity_tpu_torch.geometry.projection import image_to_world_plane
+    from velocity_tpu_torch.pipeline.roi import bounding_rect, inside_bbox
+    from velocity_tpu_torch.solvers.pose import plate_pose_candidates, solve_translation_np
+
+    k1, N, _ = track_px.shape
+    plate = torch.as_tensor(license_plate_points(cfg.plate_country), dtype=F64)
+    q64 = torch.as_tensor(q, dtype=F64)
+    cands = plate_pose_candidates(intr64, q64, plate, cfg.solver)
+    p0 = np.nan_to_num(track_px[0].astype(np.float64))
+    valid0 = np.isfinite(track_px[0]).all(axis=1)
+    boxa = bounding_rect(np.asarray(q), (10**9, 10**9), border=(0, 0))
+    vp0 = valid0 & inside_bbox(p0, boxa)
+    scfg = cfg.solver
+
+    def _solve_frame(pix_f, p3c, m, prev):
+        t, rms = solve_translation_np(
+            intr64, pix_f, p3c, prev, m, max_iters=scfg.max_iters_pose,
+            damping=scfg.damping, tol=scfg.tol, ramp_rate=scfg.ramp_rate)
+        if (scfg.pose_reject_sigma > 0 and scfg.pose_reject_above_px > 0
+                and rms > scfg.pose_reject_above_px):
+            fx, fy = float(intr64.fx), float(intr64.fy)
+            cx, cy = float(intr64.cx), float(intr64.cy)
+            pc = p3c + t
+            u = fx * pc[:, 0] / pc[:, 2] + cx
+            v = fy * pc[:, 1] / pc[:, 2] + cy
+            err = np.where(m, np.hypot(pix_f[:, 0] - u, pix_f[:, 1] - v), 0.0)
+            rms1 = np.sqrt((err ** 2).sum() / max(m.sum(), 1))
+            m2 = m & (err <= scfg.pose_reject_sigma * rms1)
+            if m2.sum() >= 8:
+                t, rms = solve_translation_np(
+                    intr64, pix_f, p3c, t, m2,
+                    max_iters=scfg.max_iters_pose, damping=scfg.damping,
+                    tol=scfg.tol, ramp_rate=scfg.ramp_rate)
+        return t, rms
+
+    best = None
+    for cand in cands:
+        pw2 = image_to_world_plane(intr64, cand.R, cand.t,
+                                   torch.as_tensor(p0, dtype=F64)).numpy()
+        p3c = (np.concatenate([pw2, np.zeros((N, 1))], 1)
+               @ cand.R.numpy() + cand.t.numpy())
+        t_track = np.zeros((k1, 3))
+        res_track = np.zeros(k1)
+        res_track[0] = float(cand.residual_rms)
+        prev = np.zeros(3)
+        for f in range(1, k1):
+            m = vp0 & np.isfinite(track_px[f]).all(axis=1)
+            pix_f = np.nan_to_num(track_px[f].astype(np.float64))
+            t_f, rms_f = _solve_frame(pix_f, p3c, m, prev)
+            t_track[f] = t_f
+            res_track[f] = rms_f
+            prev = t_f
+        score = float(res_track[1:].mean()) if k1 > 1 else res_track[0]
+        if best is None or score < best[0]:
+            best = (score, cand, p3c, t_track, res_track)
+    _score, pose0, p3c, t_track, res_track = best
+    return pose0, p3c, t_track, res_track
+
+
+def reanchor(
+    cfg: PipelineConfig,
+    cam,
+    scale: float,
+    track_px: np.ndarray,  # (i+1, N, 2) pixel history, NaN where invalid
+    vg: np.ndarray,  # (N,) current global validity
+    B: np.ndarray,  # (i+1, 14) car rows (B[:,0:3] positions)
+    t_cur: np.ndarray,  # (3,) current frame translation
+    p3: np.ndarray,  # (N, 3) current structure
+    q: np.ndarray | None = None,  # (4, 2) plate corners (enables the
+    # frame-0 planar-pose disambiguation; None = trust the incoming B/p3)
+):
+    """Return (p3_new, t_new or None, res_new or None) after the MSV
+    scale-transfer refinement, computed on the CPU in float64."""
+    if cfg.anchor == "ba":
+        raise NotImplementedError(
+            "anchor='ba': bundle adjustment is not ported yet (ROADMAP item 12)")
+    intr64 = cam.intrinsics(scale=scale).to(dtype=F64)
+    t_cur64 = np.asarray(t_cur, np.float64)
+    origins = np.array(B[: track_px.shape[0], 0:3], np.float64)
+    p3_base = np.array(p3)
+    t_abs = None
+    res_new = None
+    if q is not None:
+        pose0, p3c, t_rel, res_track = resolve_plate_pose(intr64, q, track_px, cfg)
+        t0_new = pose0.t.numpy().astype(np.float64)
+        t_abs = t0_new[None, :] + t_rel
+        origins = t_abs
+        p3_base = np.where(np.isfinite(track_px[0]).all(axis=1)[:, None], p3c, p3)
+        t_cur64 = t_rel[-1]
+        res_new = res_track
+    msv = msv_refine_translation(
+        intr64,
+        torch.as_tensor(track_px, dtype=F64),
+        torch.as_tensor(vg),
+        torch.as_tensor(origins, dtype=F64),
+        config=cfg.solver,
+    )
+    cloud = msv.points.numpy() - t_cur64
+    p3_new = np.array(p3_base)
+    p3_new[vg] = cloud[vg]
+    return p3_new, t_abs, res_new
