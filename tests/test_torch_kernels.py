@@ -1,6 +1,7 @@
 """Plain versions of the port's kernels K1 (LK block) and K2 (slab
-extraction) against the JAX package, on the CPU; the CUDA kernels against
-their plain versions on the card (``cuda`` marker).
+extraction) against the JAX package, on the CPU; the CUDA kernels K1, K2
+and K3 (patch extraction) against their plain versions on the card
+(``cuda`` marker). K3's CPU parity tests are in ``test_torch_lk_fast.py``.
 
 The JAX package is imported inside the CPU tests only, so that the card
 tests run where JAX is not installed:
@@ -13,6 +14,8 @@ import torch
 
 from velocity_tpu_torch.ops import lk_block_pallas as k1
 from velocity_tpu_torch.ops import lk_lanes
+from velocity_tpu_torch.ops import patch_pallas as k3
+from velocity_tpu_torch.ops.interp import extract_patches
 from velocity_tpu_torch.ops import slab_pallas as k2
 
 torch.set_num_threads(1)
@@ -173,3 +176,30 @@ def test_k1_matches_plain_on_card(cuda_device, win, P, n_taps, cubic, it0):
     torch.testing.assert_close(got_p, ref_p, rtol=1e-5, atol=1e-4)
     assert torch.equal(got_d, ref_d)
     torch.testing.assert_close(got_pd, ref_pd, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,H,W", [(34, 1080, 1920), (34, 17, 30), (70, 1080, 1920),
+                                      (82, 1080 + 2 * 82, 1920 + 2 * 82)])
+def test_k3_matches_plain_on_card(cuda_device, size, H, W):
+    """K3 is a gather: bit-equal to its plain version, clamped corners
+    included, at the fast engine's shapes (P 34 on a full frame and on a top
+    pyramid level padded to the patch, P 70, Q 82 on the padded frame);
+    corners inside and past every side."""
+    img = torch.as_tensor(_slab_image(H=H, W=W), device=cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(size)
+    corners = torch.stack([
+        torch.randint(-size, W + size, (1024,), generator=g, device=cuda_device),
+        torch.randint(-size, H + size, (1024,), generator=g, device=cuda_device),
+    ], dim=1).to(torch.int32)
+    before = k3.extract_patches.launches
+    got, got_cl = extract_patches(img, corners, size)
+    torch.cuda.synchronize()
+    assert k3.extract_patches.launches == before + 1
+    if H < size or W < size:
+        img = torch.nn.functional.pad(img[None, None], (0, max(0, size - W), 0,
+                                                         max(0, size - H)),
+                                      mode="replicate")[0, 0]
+    want, want_cl = k3.extract_patches_ref(img, corners, size)
+    assert torch.equal(got_cl, want_cl)
+    assert torch.equal(got, want)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from velocity_tpu_torch import cuda_build
-from velocity_tpu_torch.ops import lk_block_pallas, slab_pallas
+from velocity_tpu_torch.ops import lk_block_pallas, patch_pallas, slab_pallas
 
 ROOT = Path(__file__).resolve().parent.parent
 
@@ -19,8 +19,13 @@ MODULES = [
     "velocity_tpu_torch.convert",
     "velocity_tpu_torch.cuda_build",
     "velocity_tpu_torch.ops.harris",
+    "velocity_tpu_torch.ops.interp",
+    "velocity_tpu_torch.ops.lk",
+    "velocity_tpu_torch.ops.lk_fast",
     "velocity_tpu_torch.ops.lk_lanes",
+    "velocity_tpu_torch.ops.patch_pallas",
     "velocity_tpu_torch.ops.ransac",
+    "velocity_tpu_torch.ops.warp",
     "velocity_tpu_torch.pipeline.anchor",
     "velocity_tpu_torch.pipeline.scan",
     "velocity_tpu_torch.pipeline.speedest",
@@ -71,9 +76,10 @@ def _no_nvcc():
 
 def test_cuda_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     """Where the kernels cannot be built, a CUDA tensor handed to a wrapper
-    raises; neither wrapper falls back to its plain version."""
+    raises; no wrapper falls back to its plain version."""
     monkeypatch.setattr(slab_pallas, "extract_slabs_ref", _no_plain)
     monkeypatch.setattr(lk_block_pallas, "block_iters_ref", _no_plain)
+    monkeypatch.setattr(patch_pallas, "extract_patches_ref", _no_plain)
     monkeypatch.setattr(cuda_build, "_lib", None)
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(cuda_build, "_nvcc", _no_nvcc)
@@ -83,6 +89,8 @@ def test_cuda_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         lk_block_pallas.lk_block(*([x] * 14), 0, win=15, n_taps=8, cubic=False,
                                  eps=0.1, Wd=64, Hd=64)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        patch_pallas.extract_patches(x, x, 24)
 
 
 def test_other_devices_are_refused():
@@ -90,6 +98,8 @@ def test_other_devices_are_refused():
     idx = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         slab_pallas.extract_slabs(meta, idx, idx, 24)
+    with pytest.raises(ValueError, match="unsupported device"):
+        patch_pallas.extract_patches(meta, idx.reshape(1, 2), 24)
 
 
 def test_runner_refuses_cuda_without_a_card():
@@ -107,16 +117,49 @@ def test_unported_options_raise():
     from velocity_tpu_torch.pipeline.anchor import reanchor
     from velocity_tpu_torch.pipeline.tracker import _check_backend
 
-    with pytest.raises(NotImplementedError, match="item 18"):
-        _check_backend(TrackerConfig(lk_backend="fast"))
     with pytest.raises(NotImplementedError, match="item 15"):
         _check_backend(TrackerConfig(shard_features=2))
     with pytest.raises(NotImplementedError, match="item 12"):
         reanchor(PipelineConfig(anchor="ba"), None, 0.5, None, None, None, None, None)
 
 
+def test_lk_backends_select_their_engine():
+    """``lk_backend`` picks the LK engine as in JAX: "lanes" (on the carried
+    pyramids), "fast", and any other value the gather engine."""
+    from velocity_tpu_torch.config import TrackerConfig
+    from velocity_tpu_torch.ops import lk, lk_fast, lk_lanes
+    from velocity_tpu_torch.pipeline.tracker import _lk_impls, _pyr_kw
+
+    want = {
+        "lanes": (lk_lanes.lk_pyramidal_lanes, lk_lanes.lk_forward_backward_lanes),
+        "fast": (lk_fast.lk_pyramidal_fast, lk_fast.lk_forward_backward_fast),
+        "reference": (lk.lk_pyramidal, lk.lk_forward_backward),
+    }
+    for backend, fns in want.items():
+        cfg = TrackerConfig(lk_backend=backend)
+        assert _lk_impls(cfg) == fns
+        assert _pyr_kw(cfg, "a", "b") == ({"src_pyr": "a", "dst_pyr": "b"}
+                                          if backend == "lanes" else {})
+    # feature sharding exists only for the lanes engine; the others ignore it
+    assert _lk_impls(TrackerConfig(lk_backend="fast", shard_features=2)) == want["fast"]
+
+
 def test_library_name_follows_the_sources():
-    """The kernel library is keyed by a hash of csrc/*.cu and the flags."""
+    """The kernel library is keyed by a hash of csrc/*.cu, csrc/*.cuh and
+    the flags; an edited header renames it."""
     p = cuda_build.library_path()
     assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libvt_kernels_")
-    assert sorted(s.name for s in cuda_build._sources()) == ["lk_block.cu", "slab.cu"]
+    assert sorted(s.name for s in cuda_build._sources()) == ["lk_block.cu", "patch.cu",
+                                                             "slab.cu"]
+    assert [s.name for s in cuda_build._headers()] == ["window.cuh"]
+
+
+def test_library_name_hashes_headers(monkeypatch, tmp_path):
+    src = tmp_path / "csrc"
+    src.mkdir()
+    (src / "a.cu").write_text('#include "h.cuh"\n')
+    (src / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "SRC_DIR", src)
+    before = cuda_build.library_path()
+    (src / "h.cuh").write_text("// two\n")
+    assert cuda_build.library_path() != before

@@ -3,8 +3,10 @@
 whole ``ScanSpeedRunner.run``.
 
 The clip is 270x480, 8 frames; the runs use msv_frame=3, 128 features and
-64 RANSAC trials. RANSAC noise: the port is handed JAX's own Gumbel draws,
-so both sample the same hypotheses.
+64 RANSAC trials. The frame step and the run are compared with each of the
+two LK backends that track this clip end to end, "lanes" (the default) and
+"fast". RANSAC noise: the port is handed JAX's own Gumbel draws, so both
+sample the same hypotheses.
 """
 
 import dataclasses
@@ -41,10 +43,23 @@ N_FRAMES, WIDTH, HEIGHT = 8, 480, 270
 MSV, FEATURES, TRIALS = 3, 128, 64
 SCALE = 0.5
 
-CFG = PipelineConfig(solver=SolverConfig(dtype="float32"), msv_frame=MSV,
-                     tracker=TrackerConfig(max_features=FEATURES, ransac_trials=TRIALS))
-JCFG = JaxPipelineConfig(solver=JaxSolverConfig(dtype="float32"), msv_frame=MSV,
-                         tracker=JaxTrackerConfig(max_features=FEATURES, ransac_trials=TRIALS))
+BACKENDS = ["lanes", "fast"]
+
+
+def _cfg(lk_backend="lanes"):
+    return PipelineConfig(solver=SolverConfig(dtype="float32"), msv_frame=MSV,
+                          tracker=TrackerConfig(max_features=FEATURES, ransac_trials=TRIALS,
+                                                lk_backend=lk_backend))
+
+
+def _jcfg(lk_backend="lanes"):
+    return JaxPipelineConfig(solver=JaxSolverConfig(dtype="float32"), msv_frame=MSV,
+                             tracker=JaxTrackerConfig(max_features=FEATURES,
+                                                      ransac_trials=TRIALS,
+                                                      lk_backend=lk_backend))
+
+
+CFG, JCFG = _cfg(), _jcfg()
 
 
 @pytest.fixture(scope="module")
@@ -108,32 +123,34 @@ def test_frame0_init_matches_jax(clip):
     assert abs(res0 - jres0) < 1e-6
 
 
-def test_frame_step_matches_jax(clip, monkeypatch):
+@pytest.mark.parametrize("lk_backend", BACKENDS)
+def test_frame_step_matches_jax(clip, monkeypatch, lk_backend):
     """One fused_frame_step_pyr from the JAX step's own inputs (carried over
     by state_from_numpy): tracked points within 1e-3 px where both are
     valid, >= 99% equal validity, the stage-3 affine within 1e-3 px where it
     maps the valid points (its translation column alone extrapolates to the
     image origin), the translation within 1e-3 relative and the residual
     within 0.05 px."""
+    cfg, jcfg = _cfg(lk_backend), _jcfg(lk_backend)
     g0, g1 = clip.reader.grays[0], clip.reader.grays[1]
     q = clip.annotation.q * SCALE
-    est = JaxSpeedEstimator(JCFG)
+    est = JaxSpeedEstimator(jcfg)
     p, valid, boxa, _ = est._init_features(g0, q)
     t0, p3, _ = est._init_geometry(_jax_info(clip), q, p, valid, SCALE)
     vp = valid & inside_bbox(p, boxa)
     intr = _jax_info(clip).intrinsics(scale=SCALE).astype(jnp.float32)
-    pyr, spyr = jax_frame_pyramids(jnp.asarray(g0), JCFG.tracker)
+    pyr, spyr = jax_frame_pyramids(jnp.asarray(g0), jcfg.tracker)
     keys, draws = _jax_gumbel(2)
     _inject(monkeypatch, draws)
 
     want = jax_step(pyr, spyr, jnp.asarray(g1), jnp.asarray(p), jnp.asarray(valid),
                     jnp.asarray(vp), jnp.asarray(p3, jnp.float32), intr, keys[1],
-                    JCFG.tracker, JCFG.solver, jnp.float32, jnp.asarray(t0, jnp.float32))
+                    jcfg.tracker, jcfg.solver, jnp.float32, jnp.asarray(t0, jnp.float32))
     st = state_from_numpy(pyr=pyr, spyr=spyr, pts=p, vg=valid, vp=vp, t=t0, p3=p3,
                           intr=intr)
     got = fused_frame_step_pyr(st["pyr"], st["spyr"], torch.as_tensor(g1), st["pts"],
                                st["vg"], st["vp"], st["p3"], st["intr"], None,
-                               CFG.tracker, CFG.solver, torch.float32, st["t"])
+                               cfg.tracker, cfg.solver, torch.float32, st["t"])
     assert not draws
     (_, _, jpts, jvg, jvp, jt, jres, jproj, jn2, jT) = want[:10]
     (_, _, pts, vg, vp2, t, res, proj, n2, T) = got
@@ -176,7 +193,8 @@ def _no_native_loader(*args, **kwargs):
     raise OSError("frames come from the synthetic clip")
 
 
-def test_scan_run_matches_jax(clip, monkeypatch):
+@pytest.mark.parametrize("lk_backend", BACKENDS)
+def test_scan_run_matches_jax(clip, monkeypatch, lk_backend):
     """The whole ScanSpeedRunner.run, JAX on its own frames through a
     patched VideoReader, the port on the same clip with JAX's RANSAC noise:
     speed within 0.5%, per-frame translations within 1e-3 relative, mean
@@ -184,13 +202,13 @@ def test_scan_run_matches_jax(clip, monkeypatch):
     monkeypatch.setattr(jax_video, "VideoReader", lambda *a, **k: _JaxReader(clip))
     monkeypatch.setattr(jax_native_loader, "NativeVideoStream", _no_native_loader)
     ann = clip.annotation
-    want = JaxScanSpeedRunner(JCFG).run(
+    want = JaxScanSpeedRunner(_jcfg(lk_backend)).run(
         "synthetic.MOV", annotation=JaxAnnotation(ann.q, ann.fname, ann.start_frame),
         n_frames=N_FRAMES, verbose=False)
 
     _, draws = _jax_gumbel(N_FRAMES)
     _inject(monkeypatch, draws)
-    got = ScanSpeedRunner(CFG, device="cpu").run(clip.reader, annotation=ann,
+    got = ScanSpeedRunner(_cfg(lk_backend), device="cpu").run(clip.reader, annotation=ann,
                                                   n_frames=N_FRAMES, verbose=False)
     assert not draws
     assert abs(got.speed_kmh - want.speed_kmh) <= 0.005 * want.speed_kmh

@@ -1,14 +1,17 @@
 """velocity_tpu_torch — the PyTorch/CUDA port of velocity_tpu.
 
 The scan speed-estimation path (``pipeline.scan.ScanSpeedRunner``) runs end
-to end on an NVIDIA Hopper GPU. Plain tensor code is PyTorch; the two TPU
-kernels of that path are CUDA C++ under ``csrc/`` (built with nvcc for
-sm_90a at first use, loaded with ctypes, see ``cuda_build``):
+to end on an NVIDIA Hopper GPU, with the default lanes LK engine or with
+``TrackerConfig(lk_backend="fast")``. Plain tensor code is PyTorch; the
+three TPU kernels of those paths are CUDA C++ under ``csrc/`` (built with
+nvcc for sm_90a at first use, loaded with ctypes, see ``cuda_build``):
 
 - K2, slab extraction (``ops/slab_pallas.py``), replacing
   ``velocity_tpu/ops/slab_pallas.py:extract_slabs_dma``;
 - K1, the fused LK iteration block (``ops/lk_block_pallas.py``), replacing
-  ``velocity_tpu/ops/lk_block_pallas.py:lk_block``.
+  ``velocity_tpu/ops/lk_block_pallas.py:lk_block``;
+- K3, patch extraction for the fast LK engine (``ops/patch_pallas.py``),
+  replacing ``velocity_tpu/ops/patch_pallas.py:extract_patches_pallas``.
 
 Module names follow ``velocity_tpu`` one to one. This package never imports
 jax or velocity_tpu; the tests import both and compare them.

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``, headers ``csrc/*.cuh``).
 
-All kernels compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ctypes. The library lands in
+Every source compiles with ``nvcc`` for ``sm_90a``, one ``nvcc`` process per
+source, all started together; the objects link into one shared library with
+a plain C interface, loaded with ctypes. The library lands in
 ``build/velocity_tpu_torch/`` at the repository root, named by a hash of the
-sources, so an edited kernel is rebuilt and an unchanged one is reused.
-Nothing builds at import: the first wrapper that launches a kernel calls
-``library()``.
+sources, headers and flags, so an edited kernel or header is rebuilt and an
+unchanged one is reused. Nothing builds at import: the first wrapper that
+launches a kernel calls ``library()``.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ from pathlib import Path
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "velocity_tpu_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+LINK_FLAGS = [*ARCH, "-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -29,6 +31,7 @@ _F = ctypes.c_float
 # are c_void_p so that 64-bit addresses are not cut to int
 SIGNATURES = {
     "vt_extract_slabs": (_I, [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
+    "vt_extract_patches": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
     "vt_lk_block": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]),
 }
@@ -38,7 +41,12 @@ build_log = ""  # nvcc's output (-Xptxas -v: registers, shared memory, spills)
 
 
 def _sources() -> list[Path]:
+    """The translation units nvcc compiles."""
     return sorted(SRC_DIR.glob("*.cu"))
+
+
+def _headers() -> list[Path]:
+    return sorted(SRC_DIR.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -54,10 +62,10 @@ def _nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + _headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libvt_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -69,12 +77,26 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    srcs = _sources()
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    try:
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(srcs, objs)]
+        build_log = "".join(proc.communicate()[0] for proc in procs)  # waits for each
+        failed = [src.name for src, proc in zip(srcs, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{build_log}")
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        build_log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{build_log}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 

@@ -21,7 +21,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from velocity_tpu_torch.ops.lk import LKResult, _affine_for_level
+from velocity_tpu_torch.ops.lk import LKResult, _affine_for_level, _grad_xy, _pad_edge
 from velocity_tpu_torch.ops.lk_block_pallas import (  # noqa: F401
     BLOCK_ITERS,
     REACH,
@@ -41,11 +41,6 @@ def _round8(x: int) -> int:
     return (x + 7) & ~7
 
 
-def _pad_edge(img, pad: int):
-    """Edge-pad by ``pad`` on every side."""
-    return F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
-
-
 def _extract_slabs(img, corners, size: int):
     """(N, size, size) integer-corner slabs, points-major, through K2.
 
@@ -63,21 +58,6 @@ def _extract_slabs(img, corners, size: int):
     cx = torch.clamp(corners[:, 0], 0, W - size).to(torch.int32).contiguous()
     slabs = extract_slabs(img.contiguous(), cx, cy, size)
     return slabs, torch.stack([cx, cy], dim=1)
-
-
-def _grad_xy(patch):
-    """Scharr-smoothed central-difference gradients of an (N, P, P) patch."""
-    P = patch.shape[1]
-    p = F.pad(patch[:, None], (1, 1, 1, 1), mode="replicate")[:, 0]
-    rm, r0, rp = p[:, 0:P, 1:1 + P], p[:, 1:1 + P, 1:1 + P], p[:, 2:2 + P, 1:1 + P]
-    sv = (3.0 * rm + 10.0 * r0 + 3.0 * rp) * (1.0 / 16.0)
-    cm, c0, cp = p[:, 1:1 + P, 0:P], p[:, 1:1 + P, 1:1 + P], p[:, 1:1 + P, 2:2 + P]
-    sh = (3.0 * cm + 10.0 * c0 + 3.0 * cp) * (1.0 / 16.0)
-    pv = F.pad(sv[:, None], (1, 1, 0, 0), mode="replicate")[:, 0]
-    gx = (pv[:, :, 2:2 + P] - pv[:, :, 0:P]) * 0.5
-    ph = F.pad(sh[:, None], (0, 0, 1, 1), mode="replicate")[:, 0]
-    gy = (ph[:, 2:2 + P] - ph[:, 0:P]) * 0.5
-    return gx, gy
 
 
 def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):

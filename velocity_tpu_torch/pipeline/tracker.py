@@ -1,4 +1,4 @@
-"""Three-stage coarse-to-fine KLT tracker, lanes backend (torch twin of
+"""Three-stage coarse-to-fine KLT tracker (torch twin of
 ``velocity_tpu/pipeline/tracker.py``).
 
 1. coarse LK on 1/4-scale frames (win 15, 4 levels) + RANSAC affine inliers;
@@ -7,6 +7,11 @@
    level) through that affine with forward-backward gate 0.3 px;
 then the masked translation LM. ``fused_frame_step_pyr`` is one frame of
 that, on pyramids built once per frame and carried to the next.
+
+``TrackerConfig.lk_backend`` picks the LK engine: "lanes" (the default,
+``ops/lk_lanes.py``, on the carried pyramids), "fast" (``ops/lk_fast.py``)
+or any other value for the gather engine (``ops/lk.py``); the last two
+rebuild their pyramids inside each call, as in JAX.
 """
 
 from __future__ import annotations
@@ -14,19 +19,34 @@ from __future__ import annotations
 import torch
 
 from velocity_tpu_torch.config import TrackerConfig
+from velocity_tpu_torch.ops.lk import lk_forward_backward, lk_pyramidal
+from velocity_tpu_torch.ops.lk_fast import lk_forward_backward_fast, lk_pyramidal_fast
 from velocity_tpu_torch.ops.lk_lanes import lk_forward_backward_lanes, lk_pyramidal_lanes
 from velocity_tpu_torch.ops.pyramid import build_pyramid, resize_nearest
 from velocity_tpu_torch.ops.ransac import estimate_affine_ransac
 
 
 def _check_backend(cfg: TrackerConfig) -> None:
-    if cfg.lk_backend != "lanes":
-        raise NotImplementedError(
-            f"lk_backend={cfg.lk_backend!r}: the port has only the 'lanes' backend "
-            "(the 'fast' backend and its kernel are ROADMAP item 18)")
-    if cfg.shard_features > 1:
+    if cfg.lk_backend == "lanes" and cfg.shard_features > 1:
         raise NotImplementedError(
             "shard_features > 1: feature-axis sharding is ROADMAP item 15")
+
+
+def _lk_impls(cfg: TrackerConfig):
+    """(pyramidal LK, forward-backward LK) of the configured backend."""
+    _check_backend(cfg)
+    if cfg.lk_backend == "lanes":
+        return lk_pyramidal_lanes, lk_forward_backward_lanes
+    if cfg.lk_backend == "fast":
+        return lk_pyramidal_fast, lk_forward_backward_fast
+    return lk_pyramidal, lk_forward_backward
+
+
+def _pyr_kw(cfg: TrackerConfig, src_pyr, dst_pyr):
+    """Prebuilt-pyramid kwargs (lanes backend only; the others rebuild)."""
+    if cfg.lk_backend == "lanes":
+        return dict(src_pyr=src_pyr, dst_pyr=dst_pyr)
+    return {}
 
 
 def frame_pyramids(im, cfg: TrackerConfig, dtype=torch.float32):
@@ -62,16 +82,16 @@ def _ransac(src, dst, mask, cfg: TrackerConfig, generator):
 def _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
                     generator, cfg: TrackerConfig):
     """Stages 1-2 + the stage-3 affine, on prebuilt per-frame pyramids."""
-    _check_backend(cfg)
     dtype = pts.dtype
     scale = cfg.coarse_scale
+    lk_pyr, lk_fb = _lk_impls(cfg)
 
     # ---- stage 1: coarse global LK on small images + RANSAC inliers ----
     lk1 = cfg.lk_coarse
-    r1 = lk_pyramidal_lanes(
+    r1 = lk_pyr(
         spyr_prev[0].to(dtype), spyr_cur[0].to(dtype), pts * scale,
         win=lk1.window, max_level=lk1.max_level, iters=lk1.max_iters, eps=lk1.eps,
-        src_pyr=spyr_prev, dst_pyr=spyr_cur,
+        **_pyr_kw(cfg, spyr_prev, spyr_cur),
     )
     p1 = r1.points / scale
     v1 = valid & r1.status
@@ -87,11 +107,11 @@ def _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
     mean_shift = torch.sum((p1 - pts) * m1, dim=0) / n1
     shift_int = torch.trunc(mean_shift)
     lvl2 = cfg.stage2_max_level if cfg.stage2_max_level is not None else lk1.max_level
-    r2 = lk_forward_backward_lanes(
+    r2 = lk_fb(
         pyr_prev[0].to(dtype), pyr_cur[0].to(dtype), pts,
         guess=pts + shift_int, fb_threshold=cfg.fb_threshold_coarse,
         win=lk1.window, max_level=lvl2, iters=lk1.max_iters, eps=lk1.eps,
-        src_pyr=pyr_prev[: lvl2 + 1], dst_pyr=pyr_cur[: lvl2 + 1],
+        **_pyr_kw(cfg, pyr_prev[: lvl2 + 1], pyr_cur[: lvl2 + 1]),
     )
     p2 = r2.points
     v2 = valid & r2.status
@@ -108,14 +128,14 @@ def _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
 
 def _track_fine_p(pyr_prev, pyr_cur, pts, valid, T23, cfg: TrackerConfig):
     """Stage 3 (fine, affine-warped, fb-gated) on prebuilt pyramids."""
-    _check_backend(cfg)
     dtype = pts.dtype
     lk3 = cfg.lk_fine
-    r3 = lk_forward_backward_lanes(
+    _, lk_fb = _lk_impls(cfg)
+    r3 = lk_fb(
         pyr_prev[0].to(dtype), pyr_cur[0].to(dtype), pts,
         fb_threshold=cfg.fb_threshold_fine, warp_dst=T23,
         win=lk3.window, max_level=lk3.max_level, iters=lk3.max_iters, eps=lk3.eps,
-        src_pyr=pyr_prev[: lk3.max_level + 1], dst_pyr=pyr_cur[: lk3.max_level + 1],
+        **_pyr_kw(cfg, pyr_prev[: lk3.max_level + 1], pyr_cur[: lk3.max_level + 1]),
     )
     # map solved (previous-frame) coords through the affine into the current frame
     p3 = r3.points @ T23[:, :2].T + T23[:, 2]
