@@ -4,15 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``velocity_tpu_torch/csrc`` (nvcc,
-sm_90a, one process per source), holds each kernel against its plain
-PyTorch version at the shapes of the main paths, then drives two paths of
+sm_90a, one process per source; a K1 instantiation that spills fails),
+holds each kernel against its plain PyTorch version at the shapes of the
+main paths (K1 also at its edge cases), then drives two paths of
 ``ScanSpeedRunner.run`` on a 1920x1080, 20-frame synthetic clip with the
 default widths (1024 features, 1024 RANSAC trials) and the f32 solver: the
 default lanes LK engine (kernels K1 and K2) and ``lk_backend="fast"``
 (kernel K3, with K2 at init). It checks that each path went through its
-kernels and recovered the clip's speed, then profiles one more warm run of
-each path (device busy share, top kernels, the fast path's
-``_extract_warped`` share). Any failure exits non-zero; there is no CPU
+kernels and recovered the clip's speed, prints K1's launches by shape,
+then profiles one more warm run of each path (device busy share, top
+kernels and K1's, the fast path's ``_extract_warped`` share). Any failure exits non-zero; there is no CPU
 fallback. The last line is a JSON object with ``"ok": true``.
 
 Each kernel's bound is the larger of its bytes over the card's memory rate
@@ -25,6 +26,7 @@ reads the per-point tensors of the points still active on entry.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -52,6 +54,16 @@ PEAK_F32_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 SLAB_SHAPES = ((24, 1024), (56, 1024), (64, 1024), (72, 1024), (27, 1020))
 K1_CONFIGS = ((15, 24, 8, False), (51, 64, 10, True), (51, 64, 8, False))
 K1_RTOL, K1_ATOL = 1e-5, 1e-4  # summation order and FMA contraction differ
+# K1 edge cases (kind, win, P, n_taps, cubic, N): point counts that leave a
+# block's warps part-filled, every point done, windows outside the two
+# kernel shapes (win 21; win 61, more gradient strips than threads),
+# offsets on integers and on both clamp ends
+K1_EDGES = (("n", 15, 24, 8, False, 1), ("n", 15, 24, 8, False, 1020),
+            ("n", 51, 64, 10, True, 1), ("n", 51, 64, 10, True, 1020),
+            ("all_done", 15, 24, 8, False, 1024), ("all_done", 51, 64, 10, True, 1024),
+            ("n", 21, 32, 8, False, 1024), ("n", 21, 32, 10, True, 1024),
+            ("n", 61, 72, 8, False, 256), ("n", 61, 72, 10, True, 256),
+            *((kind, *cfg, 1024) for kind in ("integer", "ends") for cfg in K1_CONFIGS))
 # (label, H, W, size) of every patch extraction on the fast path: stages
 # 1-2 (P 34) at the levels of the full-size frame and at the top level of
 # the quarter-scale pyramid (17x30, edge-padded to the patch first), stage 3
@@ -114,7 +126,37 @@ def phase_device():
     return smi
 
 
+def _kernel_name(mangled: str) -> str:
+    """``lk_block_point<cubic, cached>`` for the mangled name of a K1
+    instantiation; other kernels keep their mangled name."""
+    if m := re.search(r"(lk_block_[a-z]+)I((?:Lb[01]E)+)E", mangled):
+        flags = re.findall(r"Lb([01])E", m[2])
+        args = ["cubic" if flags[0] == "1" else "linear"]
+        args += ["cached" if f == "1" else "uncached" for f in flags[1:]]
+        return f"{m[1]}<{', '.join(args)}>"
+    return mangled
+
+
+def ptxas_report(log: str):
+    """[(kernel, registers, spill store bytes, spill load bytes)] from
+    ``nvcc -Xptxas -v`` output, one row per compiled entry function."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            name, spill = _kernel_name(m[1]), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            rows.append((name, int(m[1]), *spill))
+            name = None
+    return rows
+
+
 def phase_build():
+    """Build the kernels; print each entry function's registers and spills.
+    Fails unless the six K1 instantiations (the warp kernel, the block
+    kernel with cached and with uncached gradients, each linear and cubic)
+    compiled without spills."""
     from velocity_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
@@ -122,8 +164,15 @@ def phase_build():
     cuda_build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {path.relative_to(ROOT)}")
     for line in cuda_build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print("  ptxas:", line.strip())
+        if "error" in line.lower():
+            print("  nvcc:", line.strip())
+    rows = ptxas_report(cuda_build.build_log)
+    for name, regs, st, ld in rows:
+        print(f"  ptxas: {name}: {regs} registers, {st} bytes spill stores, "
+              f"{ld} bytes spill loads")
+    k1 = [r for r in rows if r[0].startswith("lk_block")]
+    if len(k1) != 6 or any(st or ld for _, _, st, ld in k1):
+        raise AssertionError(f"K1 instantiations with spills, or not six: {k1}")
 
 
 def phase_k2(dev):
@@ -197,10 +246,9 @@ def phase_k3(dev):
     return rows
 
 
-def _k1_case(dev, win, P, n_taps, cubic, it0, seed=0):
+def _k1_case(dev, win, P, n_taps, cubic, it0, seed=0, N=N_POINTS):
     """Random K1 inputs at a main-path shape, points-major, on the card."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    N = N_POINTS
 
     def rnd(*shape):
         return torch.rand(shape, generator=g, device=dev)
@@ -229,6 +277,30 @@ def _k1_case(dev, win, P, n_taps, cubic, it0, seed=0):
             trackable, pts.contiguous(), done, pd.contiguous(), it0), kw
 
 
+def _k1_edge(dev, kind, win, P, n_taps, cubic, N):
+    """K1 inputs at an edge: "n" (N points), "integer" (first offsets on
+    exact integers of the clamp range), "ends" (on both clamp ends, the
+    float below the upper one, and past them), "all_done"."""
+    args, kw = _k1_case(dev, win, P, n_taps, cubic, 5 if kind == "all_done" else 0,
+                        seed=N + 1, N=N)
+    args = list(args)
+    if kind in ("integer", "ends"):
+        g = torch.Generator(device=dev).manual_seed(7)
+        lo, hi = (1.0, n_taps - 2.0) if cubic else (0.0, n_taps - 1.0)
+        below = float(np.nextafter(np.float32(hi), np.float32(-np.inf)))
+        vals = (torch.arange(lo, hi + 1, device=dev) if kind == "integer" else
+                torch.tensor([lo, hi, below, lo - 0.25, hi + 0.25], device=dev))
+        o = vals[torch.randint(0, len(vals), (2, N), generator=g, device=dev)]
+        pts = torch.round(args[11] * 4) / 4  # quarter pixels: pts - half + b == o exactly
+        half = (win - 1) * 0.5
+        args[11] = pts.contiguous()
+        args[8] = (o[0] - (pts[0] - half)).contiguous()
+        args[9] = (o[1] - (pts[1] - half)).contiguous()
+    if kind == "all_done":
+        args[12] = torch.ones(N, dtype=torch.bool, device=dev)
+    return tuple(args), kw
+
+
 def _k1_bound(win, P, n_taps, n_active):
     """K1's least time: the points active on entry read their slab and three
     windows; every point reads 12 and writes 5 f32 words. Operations per
@@ -242,23 +314,32 @@ def _k1_bound(win, P, n_taps, n_active):
     return bound(n_bytes, n_active * BLOCK_ITERS * per_iter)
 
 
+def _k1_check(k1, args, kw, label):
+    """K1 against its plain version on ``args``; returns max |dp| (px)."""
+    before = k1.lk_block.launches
+    got_p, got_d, got_pd = k1.lk_block(*args, **kw)
+    ref_p, ref_d, ref_pd = k1.block_iters_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if k1.lk_block.launches != before + 1:
+        raise AssertionError(f"K1 did not launch ({label})")
+    torch.testing.assert_close(got_p, ref_p, rtol=K1_RTOL, atol=K1_ATOL)
+    torch.testing.assert_close(got_pd, ref_pd, rtol=K1_RTOL, atol=K1_ATOL)
+    if not torch.equal(got_d, ref_d):
+        raise AssertionError(f"K1 done flags differ ({label}): "
+                             f"{int((got_d != ref_d).sum())} points")
+    return float(torch.max(torch.abs(got_p - ref_p)))
+
+
 def phase_k1(dev):
-    """K1 against its plain version: points within K1_RTOL/K1_ATOL, equal done flags."""
+    """K1 against its plain version: points within K1_RTOL/K1_ATOL, equal
+    done flags, at the main-path shapes (timed) and at the edge cases."""
     from velocity_tpu_torch.ops import lk_block_pallas as k1
 
     rows = []
     for win, P, n_taps, cubic in K1_CONFIGS:
         for it0 in (0, 5):
             args, kw = _k1_case(dev, win, P, n_taps, cubic, it0)
-            got_p, got_d, got_pd = k1.lk_block(*args, **kw)
-            ref_p, ref_d, ref_pd = k1.block_iters_ref(*args, **kw)
-            torch.cuda.synchronize()
-            torch.testing.assert_close(got_p, ref_p, rtol=K1_RTOL, atol=K1_ATOL)
-            torch.testing.assert_close(got_pd, ref_pd, rtol=K1_RTOL, atol=K1_ATOL)
-            if not torch.equal(got_d, ref_d):
-                raise AssertionError(f"K1 done flags differ ({win},{P},{n_taps},{cubic},"
-                                     f"it0={it0}): {int((got_d != ref_d).sum())} points")
-            err = float(torch.max(torch.abs(got_p - ref_p)))
+            err = _k1_check(k1, args, kw, f"{win},{P},{n_taps},{cubic},it0={it0}")
             ms = cuda_ms(lambda: k1.lk_block(*args, **kw))
             plain_ms = cuda_ms(lambda: k1.block_iters_ref(*args, **kw))
             n_active = int((args[10] & ~args[12]).sum())
@@ -270,6 +351,13 @@ def phase_k1(dev):
                   f"max|dp|={err:.3g} px, done equal; kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
                   f"{n_active} active)")
+    for kind, win, P, n_taps, cubic, N in K1_EDGES:
+        args, kw = _k1_edge(dev, kind, win, P, n_taps, cubic, N)
+        label = f"{kind} win={win} P={P} taps={n_taps} cubic={cubic} N={N}"
+        err = _k1_check(k1, args, kw, label)
+        rows.append(dict(win=win, P=P, n_taps=n_taps, cubic=cubic, edge=kind,
+                         max_abs_err=err))
+        print(f"K1 edge {label}: max|dp|={err:.3g} px, done equal")
     return rows
 
 
@@ -333,14 +421,18 @@ def _profile(run, lk_backend):
           f"{busy / 1e6:.3f} s = {busy / 1e6 / wall:.1%}, kernel time {total_us / 1e3:.1f} ms "
           f"in {len(spans)} device activities{warped} (trace read in "
           f"{time.perf_counter() - t0:.1f} s)")
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:12]
-    for name, (n, t) in top:
-        print(f"  {t / 1e3:9.2f} ms {t / max(total_us, 1e-9):6.1%} {n:7d} x  {name[:110]}")
+    ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
+    for rank, (name, (n, t)) in enumerate(ranked):
+        if rank < 12 or "lk_block" in name:  # K1's kernels wherever they rank
+            print(f"  {t / 1e3:9.2f} ms {t / max(total_us, 1e-9):6.1%} {n:7d} x  "
+                  f"#{rank + 1} {name[:110]}")
 
 
-def phase_slice(dev, clip, lk_backend, path_kernels):
+def phase_slice(dev, clip, lk_backend, path_kernels, k1_rows):
     """One path end to end on the full-size synthetic clip; every kernel in
-    ``path_kernels`` must launch in the warm run. A profiled run follows."""
+    ``path_kernels`` must launch in the warm run. K1's launches are printed
+    by shape, each with its launches x (time - bound) from ``k1_rows``. A
+    profiled run follows."""
     from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
     from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
 
@@ -358,8 +450,10 @@ def phase_slice(dev, clip, lk_backend, path_kernels):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    counters["lk_block"].launches_by_shape.clear()
     res = run()
     launches = {name: fn.launches for name, fn in counters.items()}
+    by_shape = dict(counters["lk_block"].launches_by_shape)
     wall = res.timings["wall_s"]
     jax_kmh = JAX_CPU_SPEED_KMH[lk_backend]
     print(f"slice {lk_backend} warm run: wall {wall:.3f} s, {N_FRAMES / wall:.3f} frames/s "
@@ -367,6 +461,13 @@ def phase_slice(dev, clip, lk_backend, path_kernels):
           f"msv {res.timings.get('msv_s', float('nan')):.3f} s)")
     print(f"slice {lk_backend}: speed {res.speed_kmh:.4f} km/h (true {clip.speed_kmh:.4f}, "
           f"JAX CPU {jax_kmh:.4f}), residual {res.residual_px:.4f} px, launches {launches}")
+    for (win, cubic), n in sorted(by_shape.items()):
+        # the shape's time and bound at it0 0 (phase_k1's random inputs)
+        r = next(r for r in k1_rows if r["win"] == win and r["cubic"] == cubic
+                 and r.get("it0") == 0)
+        print(f"slice {lk_backend}: K1 win {win} {'cubic' if cubic else 'linear'}: {n} "
+              f"launches x ({r['ms']:.4f} - {r['bound_ms']:.4f} ms) = "
+              f"{n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
     missing = [k for k in path_kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the {lk_backend} path did not launch {missing}: {launches}")
@@ -401,10 +502,10 @@ def main() -> int:
     clip = render_clip(n_frames=N_FRAMES, width=1920, height=1080, seed=0)
     print(f"clip: {N_FRAMES} x 1080x1920 rendered in {time.perf_counter() - t0:.1f} s, "
           f"true speed {clip.speed_kmh:.3f} km/h")
-    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"))
-    fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"))
+    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"), k1_rows)
+    fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"), k1_rows)
 
-    k1_main = next(r for r in k1_rows if r["win"] == 51 and r["cubic"] and r["it0"] == 0)
+    k1_main = next(r for r in k1_rows if r["win"] == 51 and r["cubic"] and r.get("it0") == 0)
     k2_main = next(r for r in k2_rows if r["S"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")

@@ -1,7 +1,8 @@
 """Plain versions of the port's kernels K1 (LK block) and K2 (slab
-extraction) against the JAX package, on the CPU; the CUDA kernels K1, K2
-and K3 (patch extraction) against their plain versions on the card
-(``cuda`` marker). K3's CPU parity tests are in ``test_torch_lk_fast.py``.
+extraction) against the JAX package, and the sampling K1's CUDA kernel
+does (only the taps that weigh), on the CPU; the CUDA kernels K1, K2 and
+K3 (patch extraction) against their plain versions on the card (``cuda``
+marker). K3's CPU parity tests are in ``test_torch_lk_fast.py``.
 
 The JAX package is imported inside the CPU tests only, so that the card
 tests run where JAX is not installed:
@@ -99,6 +100,87 @@ def test_lk_block_is_a_fixed_point_once_all_done():
     assert torch.equal(p, targs[11]) and torch.equal(pd, targs[13]) and bool(d.all())
 
 
+# The taps K1 evaluates in each pass: K = 2 (linear) or 4 (cubic) from
+# floor(o) or floor(o) - 1 of the clamped offset o (csrc/lk_block.cu).
+def _tap_window(o, cubic):
+    return torch.floor(o).to(torch.int64) - int(cubic), 4 if cubic else 2
+
+
+@pytest.mark.parametrize("n_taps,cubic", [(8, False), (10, True)])
+def test_taps_outside_the_window_weigh_zero(n_taps, cubic):
+    """Every tap K1 skips weighs exactly 0, so dropping it removes only
+    ``+ 0 * x`` terms: offsets over the whole clamp range, every integer and
+    the floats on either side of it, both clamp ends and the float just
+    below the upper end. The window's last tap reaches index n_taps, one
+    past the stencil, only where its weight is 0."""
+    lo, hi = (1.0, n_taps - 2.0) if cubic else (0.0, n_taps - 1.0)
+    f32 = np.float32
+    ints = np.arange(lo, hi + 1).astype(f32)
+    o = np.concatenate([np.linspace(lo, hi, 20001, dtype=f32), ints,
+                        np.nextafter(ints, f32(np.inf)), np.nextafter(ints, f32(-np.inf))])
+    o = torch.as_tensor(np.unique(np.clip(o, f32(lo), f32(hi))))
+    assert float(o[0]) == lo and float(o[-1]) == hi
+    assert float(o[-2]) == float(np.nextafter(f32(hi), f32(-np.inf)))
+    w_fn = k1._w_cubic if cubic else k1._w_linear
+    base, K = _tap_window(o, cubic)
+    assert int(base.min()) >= 0 and int((base + K - 1).max()) == n_taps
+    for t in range(n_taps + 1):  # the stencil's taps and index n_taps
+        w = w_fn(o - t)
+        skipped = (t < base) | (t >= base + K)
+        assert torch.all(w[skipped] == 0), t
+        if t == n_taps:
+            assert torch.all(w == 0)
+    past = base + K - 1 == n_taps
+    assert bool(past.any()) and torch.all(w_fn(o[past] - n_taps) == 0)
+
+
+def _sample_tap_window(patch, oy, ox, win, n_taps, cubic):
+    """K1's sampling written in torch: K taps from the window base in each
+    pass, a tap past the taps the slab feeds weighted 0, and every read
+    clamped into the slab."""
+    N, P, _ = patch.shape
+    nt = min(n_taps, P - win + 1)
+    lo = 1.0 if cubic else 0.0
+    shi = max(float(nt - 2 if cubic else nt - 1), lo)
+    ox, oy = torch.clamp(ox, lo, shi), torch.clamp(oy, lo, shi)
+    w_fn = k1._w_cubic if cubic else k1._w_linear
+    (bx, K), (by, _) = _tap_window(ox, cubic), _tap_window(oy, cubic)
+    ar = torch.arange(win)
+    H = out = None
+    for t in range(K):
+        w = torch.where(bx + t < nt, w_fn(ox - (bx + t).to(ox.dtype)), 0.0)[:, None, None]
+        cols = torch.clamp(ar[None, :] + bx[:, None] + t, max=P - 1)
+        sl = torch.gather(patch, 2, cols[:, None, :].expand(N, P, win))
+        H = w * sl if H is None else H + w * sl
+    for t in range(K):
+        w = torch.where(by + t < nt, w_fn(oy - (by + t).to(oy.dtype)), 0.0)[:, None, None]
+        rows = torch.clamp(ar[None, :] + by[:, None] + t, max=P - 1)
+        sl = torch.gather(H, 1, rows[:, :, None].expand(N, win, win))
+        out = w * sl if out is None else out + w * sl
+    return out
+
+
+@pytest.mark.parametrize("win,P,n_taps,cubic", CONFIGS + [
+    (21, 32, 8, False), (21, 32, 10, True),  # a window outside the two kernel shapes
+    (15, 20, 8, False), (15, 22, 10, True),  # the slab feeds fewer taps than asked
+])
+def test_tap_window_sampling_equals_the_full_stencil(win, P, n_taps, cubic):
+    """Sampling from the taps that weigh gives the bits of the plain
+    version's full stencil, at random offsets, integers, both clamp ends
+    and past them, including where the slab feeds fewer taps than asked."""
+    rng = np.random.default_rng(win * 100 + P)
+    nt = min(n_taps, P - win + 1)
+    lo, hi = (1.0, nt - 2.0) if cubic else (0.0, nt - 1.0)
+    edges = np.array([lo, hi, lo - 0.5, hi + 0.5, np.nextafter(np.float32(hi), -np.inf)])
+    offs = np.concatenate([rng.uniform(lo - 1, hi + 1, 200), np.arange(lo, hi + 1), edges])
+    ox = torch.as_tensor(rng.permutation(offs).astype(np.float32))
+    oy = torch.as_tensor(offs.astype(np.float32))
+    patch = torch.as_tensor(rng.uniform(0, 255, (len(offs), P, P)).astype(np.float32))
+    want = k1._sample_taps(patch, oy, ox, win, n_taps, cubic=cubic)
+    got = _sample_tap_window(patch, oy, ox, win, n_taps, cubic)
+    assert torch.equal(got, want)
+
+
 def _slab_image(H=90, W=130, seed=3):
     return np.random.default_rng(seed).uniform(0, 255, (H, W)).astype(np.float32)
 
@@ -172,6 +254,61 @@ def test_k1_matches_plain_on_card(cuda_device, win, P, n_taps, cubic, it0):
     targs = _to_torch_points_major(args, device=cuda_device)
     got_p, got_d, got_pd = k1.lk_block(*targs, **kw)
     torch.cuda.synchronize()
+    ref_p, ref_d, ref_pd = k1.block_iters_ref(*targs, **kw)
+    torch.testing.assert_close(got_p, ref_p, rtol=1e-5, atol=1e-4)
+    assert torch.equal(got_d, ref_d)
+    torch.testing.assert_close(got_pd, ref_pd, rtol=1e-5, atol=1e-4)
+
+
+def _edge_case(kind, win, P, n_taps, cubic, N=1024):
+    """K1 inputs at an edge: ``"n"`` (N points, any count), ``"integer"``
+    (every first offset an exact integer of the clamp range),
+    ``"ends"`` (at both clamp ends, the float below the upper one, and
+    past them), ``"all_done"`` (every point done on entry)."""
+    args, kw = _case(win, P, n_taps, cubic, N=N, it0=5 if kind == "all_done" else 0,
+                     seed=N)
+    args = list(args)
+    if kind in ("integer", "ends"):
+        rng = np.random.default_rng(7)
+        lo, hi = (1.0, n_taps - 2.0) if cubic else (0.0, n_taps - 1.0)
+        if kind == "integer":
+            o = rng.integers(int(lo), int(hi) + 1, (2, N)).astype(np.float32)
+        else:
+            o = rng.choice(np.array([lo, hi, np.nextafter(np.float32(hi), -np.inf),
+                                     lo - 0.25, hi + 0.25], np.float32), (2, N))
+        # pts on quarter pixels, so pts - half + b lands exactly on o
+        pts = np.round(args[11] * 4) / 4
+        half = (win - 1) * 0.5
+        args[11] = pts.astype(np.float32)
+        args[8] = (o[0] - (pts[0] - half)).astype(np.float32)
+        args[9] = (o[1] - (pts[1] - half)).astype(np.float32)
+    if kind == "all_done":
+        args[12] = np.ones(N, bool)
+    return tuple(args), kw
+
+
+K1_EDGES = [("n", 15, 24, 8, False, 1), ("n", 15, 24, 8, False, 1020),
+            ("n", 51, 64, 10, True, 1), ("n", 51, 64, 10, True, 1020),
+            ("all_done", 15, 24, 8, False, 1024), ("all_done", 51, 64, 10, True, 1024),
+            ("n", 21, 32, 8, False, 1024), ("n", 21, 32, 10, True, 1024),
+            ("n", 61, 72, 8, False, 256), ("n", 61, 72, 10, True, 256)]
+K1_EDGES += [(kind, *cfg, 1024) for kind in ("integer", "ends") for cfg in CONFIGS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,win,P,n_taps,cubic,N", K1_EDGES)
+def test_k1_edges_match_plain_on_card(cuda_device, kind, win, P, n_taps, cubic, N):
+    """K1 at its edges against its plain version: point counts that do not
+    fill the warps of a block, offsets on integers and on both clamp ends,
+    every point done, windows outside the two kernel shapes (win 21, and
+    win 61, whose gradient strips outnumber the block's threads).
+    Tolerance rtol 1e-5, atol 1e-4 px, done flags equal."""
+    args, kw = _edge_case(kind, win, P, n_taps, cubic, N=N)
+    targs = _to_torch_points_major(args, device=cuda_device)
+    before = k1.lk_block.launches
+    got_p, got_d, got_pd = k1.lk_block(*targs, **kw)
+    torch.cuda.synchronize()
+    assert k1.lk_block.launches == before + 1
     ref_p, ref_d, ref_pd = k1.block_iters_ref(*targs, **kw)
     torch.testing.assert_close(got_p, ref_p, rtol=1e-5, atol=1e-4)
     assert torch.equal(got_d, ref_d)

@@ -147,7 +147,7 @@ def test_frame_step_matches_jax(clip, monkeypatch, lk_backend):
                     jnp.asarray(vp), jnp.asarray(p3, jnp.float32), intr, keys[1],
                     jcfg.tracker, jcfg.solver, jnp.float32, jnp.asarray(t0, jnp.float32))
     st = state_from_numpy(pyr=pyr, spyr=spyr, pts=p, vg=valid, vp=vp, t=t0, p3=p3,
-                          intr=intr)
+                          intr=intr, device="cpu")
     got = fused_frame_step_pyr(st["pyr"], st["spyr"], torch.as_tensor(g1), st["pts"],
                                st["vg"], st["vp"], st["p3"], st["intr"], None,
                                cfg.tracker, cfg.solver, torch.float32, st["t"])

@@ -4,8 +4,8 @@ There are no learned weights: what crosses is state, the intrinsics, the
 scan carry (points, validity masks, translation, structure) and the
 per-frame pyramids. ``state_from_numpy`` takes those arrays as numpy (from
 ``np.asarray`` of the JAX arrays) and returns the port's tensors on a
-device, so a test can start the port's frame step from exactly the JAX
-step's inputs.
+device (the card unless the caller asks for the CPU), so a test can start
+the port's frame step from exactly the JAX step's inputs.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from velocity_tpu_torch.geometry.projection import Intrinsics
 
 
 def state_from_numpy(*, pyr=None, spyr=None, pts=None, vg=None, vp=None, t=None,
-                     p3=None, intr=None, device="cpu",
+                     p3=None, intr=None, device="cuda",
                      solver_dtype=torch.float32) -> dict:
     """Port tensors for the given JAX-side arrays (omitted ones are skipped).
 

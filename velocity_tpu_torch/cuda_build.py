@@ -28,7 +28,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 # (restype, argtypes) of every exported C function; pointers and the stream
-# are c_void_p so that 64-bit addresses are not cut to int
+# are c_void_p so that 64-bit addresses are not cut to int. vt_lk_block's
+# masks (trackable, done in, done out) point at torch.bool bytes.
 SIGNATURES = {
     "vt_extract_slabs": (_I, [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
     "vt_extract_patches": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),

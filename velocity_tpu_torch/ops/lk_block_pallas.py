@@ -1,16 +1,18 @@
 """K1: one fused LK iteration block (CUDA), with its plain twin.
 
 Replaces ``velocity_tpu/ops/lk_block_pallas.py:lk_block``; the module keeps
-the JAX module's name. The kernel is ``csrc/lk_block.cu``: one thread block
-per point runs BLOCK_ITERS updates with the destination slab and the x-pass
-rows in shared memory, reducing the sampled window straight into
-b = sum((J - I) * grad) without storing it. It is bound by the latency of
-five dependent block reductions, not by FLOPs or bytes; see the source.
+the JAX module's name. The kernel is ``csrc/lk_block.cu``: per update it
+evaluates only the taps that weigh (2 linear, 4 cubic) from the slab held
+in shared memory, with each thread's gradient strip in registers, and
+reduces straight into b = sum((J - I) * grad) without storing the sampled
+window. Windows up to 16 run one warp per point, larger ones one block per
+point; see the source for what bounds it.
 
 Layouts are points-major, the natural Hopper form (one block reads one
 contiguous slab): dpatch (N, P, P), Ip/gxp/gyp (N, win, win), per-point
-vectors (N,), pts/prev_delta (2, N). The TPU's lane blocking
-(``BN=1024/128``) and the ``N % 128`` precondition do not carry over.
+vectors (N,), pts/prev_delta (2, N); the masks are bool, which the kernel
+reads and writes as bytes. The TPU's lane blocking (``BN=1024/128``) and
+the ``N % 128`` precondition do not carry over.
 
 ``block_iters_ref`` is the plain version: the torch twin of
 ``velocity_tpu/ops/lk_lanes.py:block_iters_ref``. ``lk_block`` takes it for
@@ -132,32 +134,35 @@ def lk_block(
     lib = cuda_build.library()
     N, P, _ = dpatch.shape
     f32 = torch.float32
-    trk = trackable.to(f32).contiguous()
-    done_f = done.to(f32).contiguous()
     _check_cuda("dpatch", dpatch, (N, P, P), f32, dev)
     for name, t in (("Ip", Ip), ("gxp", gxp), ("gyp", gyp)):
         _check_cuda(name, t, (N, win, win), f32, dev)
     for name, t in (("a11", a11), ("a12", a12), ("a22", a22), ("inv_det", inv_det),
-                    ("bx", bx), ("by", by), ("trackable", trk), ("done", done_f)):
+                    ("bx", bx), ("by", by)):
         _check_cuda(name, t, (N,), f32, dev)
+    for name, t in (("trackable", trackable), ("done", done)):
+        _check_cuda(name, t, (N,), torch.bool, dev)
     _check_cuda("pts", pts, (2, N), f32, dev)
     _check_cuda("prev_delta", prev_delta, (2, N), f32, dev)
     pts_o = torch.empty((2, N), dtype=f32, device=dev)
-    done_o = torch.empty((N,), dtype=f32, device=dev)
+    done_o = torch.empty((N,), dtype=torch.bool, device=dev)
     pd_o = torch.empty((2, N), dtype=f32, device=dev)
     if N == 0:
-        return pts_o, done_o > 0.5, pd_o
+        return pts_o, done_o, pd_o
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.vt_lk_block(
         dpatch.data_ptr(), P, Ip.data_ptr(), gxp.data_ptr(), gyp.data_ptr(), win,
         a11.data_ptr(), a12.data_ptr(), a22.data_ptr(), inv_det.data_ptr(),
-        bx.data_ptr(), by.data_ptr(), trk.data_ptr(), pts.data_ptr(),
-        done_f.data_ptr(), prev_delta.data_ptr(), int(it0), N, n_taps, int(cubic),
+        bx.data_ptr(), by.data_ptr(), trackable.data_ptr(), pts.data_ptr(),
+        done.data_ptr(), prev_delta.data_ptr(), int(it0), N, n_taps, int(cubic),
         float(eps * eps), int(Wd), int(Hd),
         pts_o.data_ptr(), done_o.data_ptr(), pd_o.data_ptr(), stream)
     cuda_build.check(rc, "vt_lk_block")
     lk_block.launches += 1
-    return pts_o, done_o > 0.5, pd_o
+    key = (win, bool(cubic))
+    lk_block.launches_by_shape[key] = lk_block.launches_by_shape.get(key, 0) + 1
+    return pts_o, done_o, pd_o
 
 
 lk_block.launches = 0
+lk_block.launches_by_shape = {}  # (win, cubic) -> launches
