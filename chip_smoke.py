@@ -6,15 +6,18 @@
 Builds the port's CUDA kernels from ``velocity_tpu_torch/csrc`` (nvcc,
 sm_90a, one process per source; a K1 instantiation that spills fails),
 holds each kernel against its plain PyTorch version at the shapes of the
-main paths (K1 also at its edge cases), then drives two paths of
-``ScanSpeedRunner.run`` on a 1920x1080, 20-frame synthetic clip with the
-default widths (1024 features, 1024 RANSAC trials) and the f32 solver: the
-default lanes LK engine (kernels K1 and K2) and ``lk_backend="fast"``
-(kernel K3, with K2 at init). It checks that each path went through its
-kernels and recovered the clip's speed, prints K1's launches by shape,
-then profiles one more warm run of each path (device busy share, top
-kernels and K1's, the fast path's ``_extract_warped`` share). Any failure exits non-zero; there is no CPU
-fallback. The last line is a JSON object with ``"ok": true``.
+main paths (K1 also at its edge cases; K2 and K3 with corners past every
+side, and each beside its launch floor, the same call at size 1), then
+drives two paths of ``ScanSpeedRunner.run`` on a 1920x1080, 20-frame
+synthetic clip with the default widths (1024 features, 1024 RANSAC trials)
+and the f32 solver: the default lanes LK engine (kernels K1 and K2) and
+``lk_backend="fast"`` (kernel K3, with K2 at init). It checks that each
+path went through its kernels and recovered the clip's speed, prints each
+kernel's launches by shape with launches x (time - bound), then profiles
+one more warm run of each path (device busy share, top kernels and the
+hand kernels', the share of each eager stencil in ``ANNOTATED``). Any failure
+exits non-zero; there is no CPU fallback. The last line is a JSON object
+with ``"ok": true``.
 
 Each kernel's bound is the larger of its bytes over the card's memory rate
 and its f32 operations over the card's f32 rate (H100 SXM published peaks,
@@ -54,6 +57,13 @@ PEAK_F32_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 SLAB_SHAPES = ((24, 1024), (56, 1024), (64, 1024), (72, 1024), (27, 1020))
 K1_CONFIGS = ((15, 24, 8, False), (51, 64, 10, True), (51, 64, 8, False))
 K1_RTOL, K1_ATOL = 1e-5, 1e-4  # summation order and FMA contraction differ
+# Functions (module of velocity_tpu_torch.ops, name) whose device time each
+# path's profiled run reports: the eager PyTorch stencils that stand where
+# JAX leaves the work to XLA (the warped slabs' K2 launch counts inside
+# _extract_warped_lanes)
+ANNOTATED = {"lanes": ("lk_lanes._extract_warped_lanes", "lk_lanes._sample_taps",
+                       "lk_lanes._grad_xy"),
+             "fast": ("lk_fast._extract_warped",)}
 # K1 edge cases (kind, win, P, n_taps, cubic, N): point counts that leave a
 # block's warps part-filled, every point done, windows outside the two
 # kernel shapes (win 21; win 61, more gradient strips than threads),
@@ -128,12 +138,17 @@ def phase_device():
 
 def _kernel_name(mangled: str) -> str:
     """``lk_block_point<cubic, cached>`` for the mangled name of a K1
-    instantiation; other kernels keep their mangled name."""
+    instantiation, ``gather_windows<128, 4, split>`` for the window gather
+    of K2 and K3 (threads per block, words per thread and step, whether a
+    thread's words may run into the next row); other kernels keep their
+    mangled name."""
     if m := re.search(r"(lk_block_[a-z]+)I((?:Lb[01]E)+)E", mangled):
         flags = re.findall(r"Lb([01])E", m[2])
         args = ["cubic" if flags[0] == "1" else "linear"]
         args += ["cached" if f == "1" else "uncached" for f in flags[1:]]
         return f"{m[1]}<{', '.join(args)}>"
+    if m := re.search(r"gather_windowsILi(\d+)ELi(\d+)ELb([01])E", mangled):
+        return f"gather_windows<{m[1]}, {m[2]}{', split' if m[3] == '1' else ''}>"
     return mangled
 
 
@@ -156,7 +171,7 @@ def phase_build():
     """Build the kernels; print each entry function's registers and spills.
     Fails unless the six K1 instantiations (the warp kernel, the block
     kernel with cached and with uncached gradients, each linear and cubic)
-    compiled without spills."""
+    compiled without spills, or if a window gather instantiation spills."""
     from velocity_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
@@ -173,10 +188,56 @@ def phase_build():
     k1 = [r for r in rows if r[0].startswith("lk_block")]
     if len(k1) != 6 or any(st or ld for _, _, st, ld in k1):
         raise AssertionError(f"K1 instantiations with spills, or not six: {k1}")
+    spilled = [r for r in rows if r[0].startswith("gather_windows") and (r[2] or r[3])]
+    if spilled:
+        raise AssertionError(f"window gather instantiations with spills: {spilled}")
+
+
+def _gather_case(label, fn, ref, img, corners, size):
+    """One window gather (K2 or K3) against its plain version: windows and
+    clamped corners bit-equal. Then its time, its launch floor (the same
+    entry point, N and corners at size 1), the plain version's and one
+    advanced-index gather's; the bound counts the pixels the windows cover,
+    the output, and the corners read and the clamped ones written."""
+    got, got_cl = fn(img, corners, size)
+    want, want_cl = ref(img, corners, size)
+    torch.cuda.synchronize()
+    if not torch.equal(got_cl, want_cl):
+        raise AssertionError(f"{label}: clamped corners differ from the plain version")
+    if not torch.equal(got, want):
+        raise AssertionError(f"{label}: windows differ from the plain version")
+    N = corners.shape[0]
+    r_idx, c_idx = _window_index(want_cl[:, 0], want_cl[:, 1], size)
+    ms = cuda_ms(lambda: fn(img, corners, size))
+    floor_ms = cuda_ms(lambda: fn(img, corners, 1))
+    plain_ms = cuda_ms(lambda: ref(img, corners, size))
+    library_ms = cuda_ms(lambda: img[r_idx, c_idx])
+    bound_ms, bound_by = _gather_bound(img, r_idx, c_idx, extra_bytes=16 * N)
+    Hp, Wp = img.shape
+    print(f"{label} ({Hp}x{Wp}, size {size}, N={N}): bit-equal, corners equal; kernel "
+          f"{ms:.4f} ms, floor (size 1) {floor_ms:.4f} ms, plain {plain_ms:.4f} ms, one "
+          f"gather call {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}); "
+          f"{bound_ms / ms:.0%} of the bound's rate, {ms / floor_ms:.2f}x the floor")
+    return dict(label=label, size=size, N=N, max_abs_err=0.0, ms=ms, floor_ms=floor_ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def _corners_with_outsiders(g, H, W, size, N, lo):
+    """(N, 2) int32 corners drawn in [lo, W-size] x [lo, H-size] (lo < 0
+    reaches past the near sides), the first four past every side."""
+    corners = torch.stack([
+        torch.randint(lo, W - size + 1 - lo, (N,), generator=g, device=g.device),
+        torch.randint(lo, H - size + 1 - lo, (N,), generator=g, device=g.device),
+    ], dim=1).to(torch.int32)
+    corners[:4] = torch.tensor([[-3 * size, 5], [W + 7, -size], [4, H + 2 * size], [W, H]],
+                               dtype=torch.int32, device=g.device)
+    return corners
 
 
 def phase_k2(dev):
-    """K2 against its plain version on a padded 1080p frame: bit-equal."""
+    """K2 against its plain version on a padded 1080p frame at the lanes
+    path's shapes, corners past every side included: bit-equal."""
     from velocity_tpu_torch.ops import slab_pallas as k2
     from velocity_tpu_torch.ops.lk import _pad_edge
 
@@ -185,22 +246,9 @@ def phase_k2(dev):
     H, W = img.shape
     rows = []
     for S, N in SLAB_SHAPES:
-        cx = torch.randint(0, W - S + 1, (N,), generator=g, device=dev, dtype=torch.int32)
-        cy = torch.randint(0, H - S + 1, (N,), generator=g, device=dev, dtype=torch.int32)
-        got = k2.extract_slabs(img, cx, cy, S)
-        want = k2.extract_slabs_ref(img, cx, cy, S)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"K2 differs from its plain version at S={S}")
-        r_idx, c_idx = _window_index(cx, cy, S)
-        ms = cuda_ms(lambda: k2.extract_slabs(img, cx, cy, S))
-        plain_ms = cuda_ms(lambda: k2.extract_slabs_ref(img, cx, cy, S))
-        library_ms = cuda_ms(lambda: img[r_idx, c_idx])
-        bound_ms, bound_by = _gather_bound(img, r_idx, c_idx, extra_bytes=8 * N)
-        rows.append(dict(S=S, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
-        print(f"K2 S={S:2d} N={N}: bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"one gather call {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        corners = _corners_with_outsiders(g, H, W, S, N, lo=0)
+        rows.append(_gather_case(f"K2 S={S}", k2.extract_slabs, k2.extract_slabs_ref, img,
+                                 corners, S))
     return rows
 
 
@@ -219,30 +267,9 @@ def phase_k3(dev):
             img = F.pad(img[None, None], (0, max(0, size - W), 0, max(0, size - H)),
                         mode="replicate")[0, 0].contiguous()
         Hp, Wp = img.shape
-        corners = torch.stack([
-            torch.randint(-size // 2, Wp - size // 2, (N_POINTS,), generator=g, device=dev),
-            torch.randint(-size // 2, Hp - size // 2, (N_POINTS,), generator=g, device=dev),
-        ], dim=1).to(torch.int32)
-        corners[:4] = torch.tensor([[-3 * size, 5], [Wp + 7, -size], [4, Hp + 2 * size],
-                                    [Wp, Hp]], dtype=torch.int32, device=dev)
-        got, got_cl = k3.extract_patches(img, corners, size)
-        want, want_cl = k3.extract_patches_ref(img, corners, size)
-        torch.cuda.synchronize()
-        if not torch.equal(got_cl, want_cl):
-            raise AssertionError(f"K3 clamped corners differ from the plain version ({label})")
-        if not torch.equal(got, want):
-            raise AssertionError(f"K3 differs from its plain version ({label})")
-        r_idx, c_idx = _window_index(want_cl[:, 0], want_cl[:, 1], size)
-        ms = cuda_ms(lambda: k3.extract_patches(img, corners, size))
-        plain_ms = cuda_ms(lambda: k3.extract_patches_ref(img, corners, size))
-        library_ms = cuda_ms(lambda: img[r_idx, c_idx])
-        # corners read, clamped corners written
-        bound_ms, bound_by = _gather_bound(img, r_idx, c_idx, extra_bytes=16 * N_POINTS)
-        rows.append(dict(label=label, size=size, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
-        print(f"K3 {label} ({Hp}x{Wp}, size {size}, N={N_POINTS}): bit-equal, corners "
-              f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, one gather call "
-              f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        corners = _corners_with_outsiders(g, Hp, Wp, size, N_POINTS, lo=-(size // 2))
+        rows.append(_gather_case(f"K3 {label}", k3.extract_patches, k3.extract_patches_ref,
+                                 img, corners, size))
     return rows
 
 
@@ -370,22 +397,33 @@ def _counters():
             "extract_patches": k3.extract_patches}
 
 
+def _annotated(name, fn):
+    from torch.profiler import record_function
+
+    def wrapper(*args, **kwargs):
+        with record_function(name):
+            return fn(*args, **kwargs)
+
+    return wrapper
+
+
 def _profile(run, lk_backend):
     """One profiled warm run: device busy share (union of device activity
-    over the run's wall time), top kernels by device time and, on the fast
-    path, the device time spent under ``lk_fast._extract_warped``."""
+    over the run's wall time), top kernels by device time (and the three
+    hand kernels' wherever they rank), and the device time spent under each
+    function of ``ANNOTATED[lk_backend]``."""
+    import importlib
+
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import ProfilerActivity, profile
 
-    from velocity_tpu_torch.ops import lk_fast
-
-    real = lk_fast._extract_warped
-
-    def annotated(*args, **kwargs):
-        with record_function("_extract_warped"):
-            return real(*args, **kwargs)
-
-    lk_fast._extract_warped = annotated
+    patched = []
+    for path in ANNOTATED[lk_backend]:
+        mod_name, attr = path.rsplit(".", 1)
+        mod = importlib.import_module(f"velocity_tpu_torch.ops.{mod_name}")
+        patched.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, _annotated(attr, getattr(mod, attr)))
+    names = {attr for _, attr, _ in patched}
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -393,13 +431,14 @@ def _profile(run, lk_backend):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     finally:
-        lk_fast._extract_warped = real
+        for mod, attr, real in patched:
+            setattr(mod, attr, real)
     t0 = time.perf_counter()
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA
                    and not getattr(e, "is_user_annotation", False)
-                   and e.name != "_extract_warped")
+                   and e.name not in names)
     busy, end = 0.0, -1.0
     for s, e in spans:
         if e > end:
@@ -407,32 +446,43 @@ def _profile(run, lk_backend):
             end = e
     by_kernel = {}
     for e in events:
-        if e.device_type == DeviceType.CUDA and e.name != "_extract_warped" \
+        if e.device_type == DeviceType.CUDA and e.name not in names \
                 and not getattr(e, "is_user_annotation", False):
             n, t = by_kernel.get(e.name, (0, 0.0))
             by_kernel[e.name] = (n + 1, t + e.time_range.elapsed_us())
     total_us = sum(t for _, t in by_kernel.values())
-    warped_us = sum(e.device_time_total for e in events
-                    if e.name == "_extract_warped" and e.device_type == DeviceType.CPU)
-    warped = (f"; _extract_warped {warped_us / 1e3:.1f} ms = "
-              f"{warped_us / max(total_us, 1e-9):.1%} of kernel time"
-              if lk_backend == "fast" else "")
+    shares = ""
+    for name in sorted(names):
+        us = sum(e.device_time_total for e in events
+                 if e.name == name and e.device_type == DeviceType.CPU)
+        shares += f"; {name} {us / 1e3:.1f} ms = {us / max(total_us, 1e-9):.1%} of kernel time"
     print(f"profile {lk_backend}: wall {wall:.3f} s (profiled), device busy "
           f"{busy / 1e6:.3f} s = {busy / 1e6 / wall:.1%}, kernel time {total_us / 1e3:.1f} ms "
-          f"in {len(spans)} device activities{warped} (trace read in "
+          f"in {len(spans)} device activities{shares} (trace read in "
           f"{time.perf_counter() - t0:.1f} s)")
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     for rank, (name, (n, t)) in enumerate(ranked):
-        if rank < 12 or "lk_block" in name:  # K1's kernels wherever they rank
+        if rank < 12 or "lk_block" in name or "gather_windows" in name:
             print(f"  {t / 1e3:9.2f} ms {t / max(total_us, 1e-9):6.1%} {n:7d} x  "
-                  f"#{rank + 1} {name[:110]}")
+                  f"#{rank + 1} {_kernel_name(name)[:110]}")
 
 
-def phase_slice(dev, clip, lk_backend, path_kernels, k1_rows):
+def _print_gaps(lk_backend, name, by_shape, rows):
+    """Each K2 or K3 size's warm-run launches x (time - bound), from the
+    rows of its phase (at P 34, K3's frame-level row)."""
+    for size, n in sorted(by_shape.items()):
+        r = next((r for r in rows if r["size"] == size), None)
+        gap = ("no row for this size" if r is None else
+               f"x ({r['ms']:.4f} - {r['bound_ms']:.4f} ms) = "
+               f"{n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
+        print(f"slice {lk_backend}: {name} size {size}: {n} launches {gap}")
+
+
+def phase_slice(dev, clip, lk_backend, path_kernels, rows):
     """One path end to end on the full-size synthetic clip; every kernel in
-    ``path_kernels`` must launch in the warm run. K1's launches are printed
-    by shape, each with its launches x (time - bound) from ``k1_rows``. A
-    profiled run follows."""
+    ``path_kernels`` must launch in the warm run. Each kernel's launches are
+    printed by shape, each with its launches x (time - bound) from ``rows``
+    (each kernel's phase rows). A profiled run follows."""
     from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
     from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
 
@@ -450,10 +500,10 @@ def phase_slice(dev, clip, lk_backend, path_kernels, k1_rows):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
-    counters["lk_block"].launches_by_shape.clear()
+        fn.launches_by_shape.clear()
     res = run()
     launches = {name: fn.launches for name, fn in counters.items()}
-    by_shape = dict(counters["lk_block"].launches_by_shape)
+    by_shape = {name: dict(fn.launches_by_shape) for name, fn in counters.items()}
     wall = res.timings["wall_s"]
     jax_kmh = JAX_CPU_SPEED_KMH[lk_backend]
     print(f"slice {lk_backend} warm run: wall {wall:.3f} s, {N_FRAMES / wall:.3f} frames/s "
@@ -461,13 +511,15 @@ def phase_slice(dev, clip, lk_backend, path_kernels, k1_rows):
           f"msv {res.timings.get('msv_s', float('nan')):.3f} s)")
     print(f"slice {lk_backend}: speed {res.speed_kmh:.4f} km/h (true {clip.speed_kmh:.4f}, "
           f"JAX CPU {jax_kmh:.4f}), residual {res.residual_px:.4f} px, launches {launches}")
-    for (win, cubic), n in sorted(by_shape.items()):
+    for (win, cubic), n in sorted(by_shape["lk_block"].items()):
         # the shape's time and bound at it0 0 (phase_k1's random inputs)
-        r = next(r for r in k1_rows if r["win"] == win and r["cubic"] == cubic
+        r = next(r for r in rows["lk_block"] if r["win"] == win and r["cubic"] == cubic
                  and r.get("it0") == 0)
         print(f"slice {lk_backend}: K1 win {win} {'cubic' if cubic else 'linear'}: {n} "
               f"launches x ({r['ms']:.4f} - {r['bound_ms']:.4f} ms) = "
               f"{n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
+    for name in ("extract_slabs", "extract_patches"):
+        _print_gaps(lk_backend, name, by_shape[name], rows[name])
     missing = [k for k in path_kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the {lk_backend} path did not launch {missing}: {launches}")
@@ -502,11 +554,12 @@ def main() -> int:
     clip = render_clip(n_frames=N_FRAMES, width=1920, height=1080, seed=0)
     print(f"clip: {N_FRAMES} x 1080x1920 rendered in {time.perf_counter() - t0:.1f} s, "
           f"true speed {clip.speed_kmh:.3f} km/h")
-    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"), k1_rows)
-    fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"), k1_rows)
+    rows = {"lk_block": k1_rows, "extract_slabs": k2_rows, "extract_patches": k3_rows}
+    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"), rows)
+    fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"), rows)
 
     k1_main = next(r for r in k1_rows if r["win"] == 51 and r["cubic"] and r.get("it0") == 0)
-    k2_main = next(r for r in k2_rows if r["S"] == 72)
+    k2_main = next(r for r in k2_rows if r["size"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     kernels = [

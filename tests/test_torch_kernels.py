@@ -1,8 +1,10 @@
 """Plain versions of the port's kernels K1 (LK block) and K2 (slab
-extraction) against the JAX package, and the sampling K1's CUDA kernel
-does (only the taps that weigh), on the CPU; the CUDA kernels K1, K2 and
-K3 (patch extraction) against their plain versions on the card (``cuda``
-marker). K3's CPU parity tests are in ``test_torch_lk_fast.py``.
+extraction, which clamps its corners) against the JAX package, the sampling
+K1's CUDA kernel does (only the taps that weigh), and the input checks of
+K2's and K3's wrappers, on the CPU; the CUDA kernels K1, K2 and K3 (patch
+extraction) against their plain versions on the card (``cuda`` marker), K2
+and K3 also at their edges. K3's CPU parity tests are in
+``test_torch_lk_fast.py``.
 
 The JAX package is imported inside the CPU tests only, so that the card
 tests run where JAX is not installed:
@@ -219,6 +221,110 @@ def test_plain_slab_extraction_pads_small_images():
     np.testing.assert_array_equal(got.numpy(), np.transpose(np.asarray(want), (2, 0, 1)))
 
 
+def _corners_past_every_side(H, W, S, n_inside=20, seed=0):
+    """int32 (N, 2) xy corners: inside, on the edges, past every side and
+    past every corner of an H x W image, for windows of size S."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([
+        rng.integers(0, [W - S + 1, H - S + 1], (n_inside, 2)),
+        [[0, 0], [W - S, H - S], [W - S, 0], [0, H - S]],
+        [[-7, 3], [W, 5], [4, -30], [9, H + 2], [-S, -S], [W + S, H + S],
+         [-3 * S, H + 1], [W + 2, -S], [W - S + 1, H - S + 1], [-1, -1]],
+    ]).astype(np.int32)
+
+
+@pytest.mark.parametrize("S", [24, 27, 72])
+def test_plain_k2_clamps_as_jax_extract_slabs(S):
+    """The plain K2, handed unclamped corners, gives the slabs and clamped
+    corners of JAX ``lk_lanes._extract_slabs`` (clip, then vmapped
+    ``dynamic_slice`` off the TPU), exactly."""
+    import jax.numpy as jnp
+    from velocity_tpu.ops.lk_lanes import _extract_slabs as jax_extract_slabs
+
+    img = _slab_image()
+    corners = _corners_past_every_side(*img.shape, S, seed=S)
+    want, want_c = jax_extract_slabs(jnp.asarray(img), jnp.asarray(corners), S)
+    got, got_c = k2.extract_slabs(torch.as_tensor(img), torch.as_tensor(corners), S)
+    assert got_c.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.transpose(np.asarray(want), (2, 0, 1)))
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+
+
+def _extract_slabs_torch_clamp(img, corners, size: int):
+    """``lk_lanes._extract_slabs`` as it was while K2 took pre-clamped
+    corners: pad a small image, clamp in torch, gather, stack the corners."""
+    H, W = img.shape
+    if H < size or W < size:
+        img = torch.nn.functional.pad(img[None, None], (0, max(0, size - W), 0,
+                                                         max(0, size - H)),
+                                      mode="replicate")[0, 0]
+        H, W = img.shape
+    cy = torch.clamp(corners[:, 1], 0, H - size).to(torch.int32)
+    cx = torch.clamp(corners[:, 0], 0, W - size).to(torch.int32)
+    ar = torch.arange(size, device=img.device)
+    slabs = img[(cy.long()[:, None] + ar)[:, :, None], (cx.long()[:, None] + ar)[:, None, :]]
+    return slabs, torch.stack([cx, cy], dim=1)
+
+
+def _caller_case(caller, device="cpu"):
+    """(image, int32 corners, size) as each caller of ``_extract_slabs``
+    builds them, from points inside, near and past the edges of a 60 x 90
+    level: the block re-anchor (P 24 on the level padded by P), the source
+    window (win 51: 56 on the level padded by 56), the warped slab (Q 72 on
+    the level padded by Q), ``corner_subpix`` (Q 27 on the unpadded image),
+    and a top level smaller than the slab (unpadded, padded inside)."""
+    from velocity_tpu_torch.ops.lk import _pad_edge
+
+    lvl = torch.as_tensor(_slab_image(H=60, W=90, seed=5), device=device)
+    rng = np.random.default_rng(11)
+    pts = np.concatenate([rng.uniform(-20, [110, 80], (40, 2)),
+                          [[0, 0], [89.5, 59.5], [-60, 30], [150, -40]]]).astype(np.float32)
+    ci = torch.floor(torch.as_tensor(pts, device=device)).to(torch.int32)
+    if caller == "reanchor":
+        size, pad, img, off = 24, 24, _pad_edge(lvl, 24), -7 - 3
+    elif caller == "source":
+        size, pad, img, off = 56, 56, _pad_edge(lvl, 56), -25 - 2
+    elif caller == "warped":
+        size, pad, img, off = 72, 72, _pad_edge(lvl, 72), -29 - 3
+    elif caller == "subpix":
+        size, pad, img, off = 27, 0, lvl, -6 - 6 - 1
+    else:  # a top level smaller than the slab
+        size, pad, img, off = 24, 0, lvl[:17, :20].contiguous(), -10
+    return img, (ci + off + pad).contiguous(), size
+
+
+@pytest.mark.parametrize("caller", ["reanchor", "source", "warped", "subpix", "small"])
+def test_extract_slabs_unchanged_by_the_clamp_in_k2(caller):
+    """``lk_lanes._extract_slabs``, now that K2 clamps, gives the slabs and
+    clamped corners it gave while it clamped in torch, on each caller's
+    padded or unpadded image (plain K2 on the CPU; exact)."""
+    img, corners, size = _caller_case(caller)
+    got, got_c = lk_lanes._extract_slabs(img, corners, size)
+    want, want_c = _extract_slabs_torch_clamp(img, corners, size)
+    assert got_c.dtype == torch.int32
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got, want)
+
+
+_GATHERS = {"k2": k2.extract_slabs, "k3": k3.extract_patches}
+
+
+@pytest.mark.parametrize("kernel", sorted(_GATHERS))
+def test_window_wrappers_refuse_bad_inputs(kernel):
+    """K2's and K3's wrappers refuse a wrong dtype, shape or size, a
+    non-contiguous image or corners, corners on another device, and a
+    device that is neither the CPU nor CUDA."""
+    fn = _GATHERS[kernel]
+    img = torch.zeros((40, 50))
+    c = torch.zeros((3, 2), dtype=torch.int32)
+    bad = ((img.double(), c, 8), (img, c.long(), 8), (img, c[:, :1], 8), (img[None], c, 8),
+           (img.t(), c, 8), (img, c.t().contiguous().t(), 8), (img, c.reshape(-1), 8),
+           (img, c, 41), (img, c, 0), (img, c.to("meta"), 8), (img.to("meta"), c, 8))
+    for bad_img, bad_c, size in bad:
+        with pytest.raises(ValueError):
+            fn(bad_img, bad_c, size)
+
+
 # ---------------------------------------------------------------- on the card
 
 
@@ -232,15 +338,74 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("S", [24, 56, 64, 72, 27])
 def test_k2_matches_plain_on_card(cuda_device, S):
-    """K2 is a gather: bit-equal to its plain version."""
+    """K2 is a gather: bit-equal to its plain version, clamped corners
+    included, with corners inside and past every side."""
     img = torch.as_tensor(_slab_image(H=1080 + 2 * 72, W=1920 + 2 * 72), device=cuda_device)
     H, W = img.shape
     g = torch.Generator(device=cuda_device).manual_seed(S)
-    cx = torch.randint(0, W - S + 1, (1024,), generator=g, device=cuda_device, dtype=torch.int32)
-    cy = torch.randint(0, H - S + 1, (1024,), generator=g, device=cuda_device, dtype=torch.int32)
-    got = k2.extract_slabs(img, cx, cy, S)
+    corners = torch.stack([
+        torch.randint(-S, W + 1, (1024,), generator=g, device=cuda_device),
+        torch.randint(-S, H + 1, (1024,), generator=g, device=cuda_device),
+    ], dim=1).to(torch.int32)
+    got, got_c = k2.extract_slabs(img, corners, S)
     torch.cuda.synchronize()
-    assert torch.equal(got, k2.extract_slabs_ref(img, cx, cy, S))
+    want, want_c = k2.extract_slabs_ref(img, corners, S)
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got, want)
+
+
+# (H, W, size, N) at the gather's edges: one point, a ragged last block
+# (N 1020) and none; odd sizes (1, 27), which store 4-byte words; sizes
+# whose 4-word steps run into the next row or point (2, 6, 34); a 17 x 30
+# top level padded to 34 x 34 (an odd row pitch before the pad); sizes with
+# 16-byte rows (24, 72)
+WINDOW_EDGES = [(90, 130, 24, 1), (90, 130, 24, 1020), (90, 130, 24, 0),
+                (1244, 2084, 72, 1), (1244, 2084, 72, 1020), (1080, 1920, 1, 1024),
+                (1080, 1920, 27, 1020), (1080, 1920, 34, 1020), (17, 30, 34, 1024),
+                (91, 131, 1, 3), (91, 131, 2, 1020), (91, 131, 6, 1), (91, 131, 6, 1020)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", sorted(_GATHERS))
+@pytest.mark.parametrize("H,W,size,N", WINDOW_EDGES)
+def test_window_gather_edges_on_card(cuda_device, kernel, H, W, size, N):
+    """K2 and K3 at their edges, bit-equal to their plain versions (windows
+    and clamped corners), with corners inside and past every side; each
+    launch counted once (none for N 0)."""
+    fn = _GATHERS[kernel]
+    img = torch.as_tensor(_slab_image(H=H, W=W, seed=N), device=cuda_device)
+    if H < size or W < size:  # as interp.extract_patches pads a top level
+        img = torch.nn.functional.pad(img[None, None], (0, max(0, size - W), 0,
+                                                         max(0, size - H)),
+                                      mode="replicate")[0, 0].contiguous()
+    Hp, Wp = img.shape
+    g = torch.Generator(device=cuda_device).manual_seed(size)
+    corners = torch.stack([
+        torch.randint(-size - 5, Wp + 5, (N,), generator=g, device=cuda_device),
+        torch.randint(-size - 5, Hp + 5, (N,), generator=g, device=cuda_device),
+    ], dim=1).to(torch.int32)
+    before = fn.launches
+    got, got_c = fn(img, corners, size)
+    torch.cuda.synchronize()
+    assert fn.launches == before + (N > 0)
+    want, want_c = (k2.extract_slabs_ref if kernel == "k2" else k3.extract_patches_ref)(
+        img, corners, size)
+    assert got.shape == (N, size, size) and got_c.shape == (N, 2)
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("caller", ["reanchor", "source", "warped", "subpix", "small"])
+def test_extract_slabs_unchanged_on_card(cuda_device, caller):
+    """``lk_lanes._extract_slabs`` through K2 gives the slabs and corners
+    that the torch clamp and plain gather give, on each caller's image."""
+    img, corners, size = _caller_case(caller, device=cuda_device)
+    got, got_c = lk_lanes._extract_slabs(img, corners, size)
+    torch.cuda.synchronize()
+    want, want_c = _extract_slabs_torch_clamp(img, corners, size)
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -37,7 +37,7 @@ def _corners(H, W, size, seed):
     ]).astype(np.int32)
 
 
-@pytest.mark.parametrize("size", [16, 34, 70, 82])
+@pytest.mark.parametrize("size", [1, 16, 27, 34, 70, 82])
 def test_plain_k3_matches_pallas_and_jax_extractor(size):
     """The plain K3 equals the Pallas kernel (interpret mode) and JAX's
     ``_extract_axis_aligned`` bit for bit, clamped corners included."""
@@ -82,7 +82,8 @@ def test_k3_wrapper_refuses_bad_inputs():
     img = torch.zeros((40, 50))
     c = torch.zeros((3, 2), dtype=torch.int32)
     for bad_img, bad_c, size in ((img.double(), c, 8), (img, c.long(), 8), (img, c[:, :1], 8),
-                                 (img.t(), c, 8), (img, c, 41), (img[None], c, 8)):
+                                 (img.t(), c, 8), (img, c, 41), (img[None], c, 8),
+                                 (img, c.t().contiguous().t(), 8), (img, c.to("meta"), 8)):
         with pytest.raises(ValueError):
             k3.extract_patches(bad_img, bad_c, size)
 

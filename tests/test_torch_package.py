@@ -25,7 +25,9 @@ MODULES = [
     "velocity_tpu_torch.ops.lk_lanes",
     "velocity_tpu_torch.ops.patch_pallas",
     "velocity_tpu_torch.ops.ransac",
+    "velocity_tpu_torch.ops.slab_pallas",
     "velocity_tpu_torch.ops.warp",
+    "velocity_tpu_torch.ops.window",
     "velocity_tpu_torch.pipeline.anchor",
     "velocity_tpu_torch.pipeline.scan",
     "velocity_tpu_torch.pipeline.speedest",
@@ -85,7 +87,7 @@ def test_cuda_tensor_without_kernel_library_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "_nvcc", _no_nvcc)
     x = _OnCuda()
     with pytest.raises(RuntimeError, match="nvcc"):
-        slab_pallas.extract_slabs(x, x, x, 24)
+        slab_pallas.extract_slabs(x, x, 24)
     with pytest.raises(RuntimeError, match="nvcc"):
         lk_block_pallas.lk_block(*([x] * 14), 0, win=15, n_taps=8, cubic=False,
                                  eps=0.1, Wd=64, Hd=64)
@@ -97,7 +99,7 @@ def test_other_devices_are_refused():
     meta = torch.empty((30, 30), device="meta")
     idx = torch.zeros(2, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        slab_pallas.extract_slabs(meta, idx, idx, 24)
+        slab_pallas.extract_slabs(meta, idx.reshape(1, 2), 24)
     with pytest.raises(ValueError, match="unsupported device"):
         patch_pallas.extract_patches(meta, idx.reshape(1, 2), 24)
 

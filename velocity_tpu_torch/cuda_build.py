@@ -31,7 +31,7 @@ _F = ctypes.c_float
 # are c_void_p so that 64-bit addresses are not cut to int. vt_lk_block's
 # masks (trackable, done in, done out) point at torch.bool bytes.
 SIGNATURES = {
-    "vt_extract_slabs": (_I, [_P, _I, _I, _P, _P, _I, _I, _P, _P]),
+    "vt_extract_slabs": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
     "vt_extract_patches": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
     "vt_lk_block": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]),

@@ -44,20 +44,17 @@ def _round8(x: int) -> int:
 def _extract_slabs(img, corners, size: int):
     """(N, size, size) integer-corner slabs, points-major, through K2.
 
-    Corners (N, 2) xy clamp into the image. Returns (slabs, clamped corners
-    (N, 2) xy). Callers edge-pad ``img`` (and offset ``corners`` by the pad)
-    so that in-bounds points never clamp: a clamped corner shifts the slab
-    content relative to the stencil anchor and corrupts every sample.
+    Corners (N, 2) int32 xy clamp into the image (inside K2). Returns
+    (slabs, clamped corners (N, 2) xy). Callers edge-pad ``img`` (and offset
+    ``corners`` by the pad) so that in-bounds points never clamp: a clamped
+    corner shifts the slab content relative to the stencil anchor and
+    corrupts every sample.
     """
     H, W = img.shape
     if H < size or W < size:
         img = F.pad(img[None, None], (0, max(0, size - W), 0, max(0, size - H)),
                     mode="replicate")[0, 0]
-        H, W = img.shape
-    cy = torch.clamp(corners[:, 1], 0, H - size).to(torch.int32).contiguous()
-    cx = torch.clamp(corners[:, 0], 0, W - size).to(torch.int32).contiguous()
-    slabs = extract_slabs(img.contiguous(), cx, cy, size)
-    return slabs, torch.stack([cx, cy], dim=1)
+    return extract_slabs(img.contiguous(), corners, size)
 
 
 def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):

@@ -1,9 +1,11 @@
 """K2: batched integer-corner slab extraction (CUDA), with its plain twin.
 
 Replaces ``velocity_tpu/ops/slab_pallas.py:extract_slabs_dma``; the module
-keeps the JAX module's name. The kernel is ``csrc/slab.cu``: a pure memory
-gather, bound by device-memory bytes, written as one thread block per point
-with coalesced row reads and writes straight into the points-major
+keeps the JAX module's name. The JAX caller (``lk_lanes._extract_slabs``)
+clamps the corners, the kernel gathers, and the caller returns the clamped
+corners. Here the kernel (``csrc/slab.cu``, the window gather of
+``csrc/window.cuh``) does all three: it clamps each corner, writes the
+clamped corners and copies the windows straight into the points-major
 ``(N, S, S)`` layout that the LK engine consumes (the JAX caller transposes
 its ``(N, S, S)`` result to lanes-last ``(S, S, N)``; the port does not).
 
@@ -14,52 +16,34 @@ in-bounds points never clamp (see ``lk_lanes._extract_slabs``).
 
 from __future__ import annotations
 
-import torch
-
-from velocity_tpu_torch import cuda_build
+from velocity_tpu_torch.ops import window
 
 
-def extract_slabs_ref(img, cx, cy, size: int):
-    """Plain version: (N, size, size) slabs ``img[cy:cy+size, cx:cx+size]``
-    by one advanced-index gather (the twin of the JAX vmapped
-    ``dynamic_slice``, already in points-major order)."""
-    ar = torch.arange(size, device=img.device)
-    rows = cy.long()[:, None] + ar[None, :]
-    cols = cx.long()[:, None] + ar[None, :]
-    return img[rows[:, :, None], cols[:, None, :]]
+def extract_slabs_ref(img, corners, size: int):
+    """Plain version: clamp the corners into [0, W-size] x [0, H-size], then
+    one advanced-index gather (the twin of JAX's clip and vmapped
+    ``dynamic_slice``, already in points-major order). Returns (slabs
+    (N, size, size), clamped corners (N, 2) xy)."""
+    return window.gather_ref(img, corners, size)
 
 
-def extract_slabs(img, cx, cy, size: int):
-    """(N, size, size) f32 slabs at integer corners (cx, cy) of ``img``.
+def extract_slabs(img, corners, size: int):
+    """(N, size, size) f32 slabs of ``img`` (H, W) at int32 ``corners``
+    (N, 2) xy, clamped into the image; returns (slabs, clamped corners).
 
-    Corners must be pre-clamped into [0, W-size] x [0, H-size]. A CPU
-    ``img`` takes the plain version; a CUDA one launches K2 or raises.
+    A CPU ``img`` takes the plain version; a CUDA one launches K2 or raises.
     """
-    if img.device.type == "cpu":
-        return extract_slabs_ref(img, cx, cy, size)
-    if img.device.type != "cuda":
+    if img.device.type not in ("cpu", "cuda"):
         raise ValueError(f"extract_slabs: unsupported device {img.device}")
-    lib = cuda_build.library()
-    H, W = img.shape
-    N = cx.shape[0]
-    if img.dtype != torch.float32 or not img.is_contiguous():
-        raise ValueError("extract_slabs: img must be contiguous float32")
-    for name, v in (("cx", cx), ("cy", cy)):
-        if v.device != img.device or v.dtype != torch.int32 or v.shape != (N,) \
-                or not v.is_contiguous():
-            raise ValueError(f"extract_slabs: {name} must be contiguous int32 (N,) "
-                             f"on {img.device}")
-    if size > H or size > W:
-        raise ValueError(f"extract_slabs: size {size} exceeds image {H}x{W}")
-    out = torch.empty((N, size, size), dtype=torch.float32, device=img.device)
-    if N == 0:
-        return out
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    rc = lib.vt_extract_slabs(img.data_ptr(), H, W, cx.data_ptr(), cy.data_ptr(),
-                              N, size, out.data_ptr(), stream)
-    cuda_build.check(rc, "vt_extract_slabs")
-    extract_slabs.launches += 1
-    return out
+    if img.device.type == "cpu":
+        window.check("extract_slabs", img, corners, size)
+        return extract_slabs_ref(img, corners, size)
+    out, cl = window.launch("extract_slabs", "vt_extract_slabs", img, corners, size)
+    if corners.shape[0]:
+        extract_slabs.launches += 1
+        extract_slabs.launches_by_shape[size] = extract_slabs.launches_by_shape.get(size, 0) + 1
+    return out, cl
 
 
 extract_slabs.launches = 0
+extract_slabs.launches_by_shape = {}  # size -> launches
