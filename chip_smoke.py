@@ -8,16 +8,30 @@ sm_90a, one process per source; a K1 instantiation that spills fails),
 holds each kernel against its plain PyTorch version at the shapes of the
 main paths (K1 also at its edge cases; K2 and K3 with corners past every
 side, and each beside its launch floor, the same call at size 1), then
-drives two paths of ``ScanSpeedRunner.run`` on a 1920x1080, 20-frame
-synthetic clip with the default widths (1024 features, 1024 RANSAC trials)
-and the f32 solver: the default lanes LK engine (kernels K1 and K2) and
-``lk_backend="fast"`` (kernel K3, with K2 at init). It checks that each
-path went through its kernels and recovered the clip's speed, prints each
-kernel's launches by shape with launches x (time - bound), then profiles
-one more warm run of each path (device busy share, top kernels and the
-hand kernels', the share of each eager stencil in ``ANNOTATED``). Any failure
-exits non-zero; there is no CPU fallback. The last line is a JSON object
-with ``"ok": true``.
+drives four paths on a 1920x1080, 20-frame synthetic clip with the default
+widths (1024 features, 1024 RANSAC trials) and the f32 solver:
+
+- ``ScanSpeedRunner.run`` with the default lanes LK engine (kernels K1 and
+  K2) and with ``lk_backend="fast"`` (kernel K3, with K2 at init), each
+  followed by a profiled warm run of the clip's first ``PROFILE_FRAMES``
+  frames (device busy share, top kernels and the hand kernels', the share
+  of each eager stencil in ``ANNOTATED``);
+- phase ``driver``: ``SpeedEstimator.run``, the per-frame driver, beside the
+  scan runner in turns, then with the feature-match rescue forced on every
+  frame (``min_affine_inliers`` huge) through a matcher built from the
+  clip's known motion (the card's machine has no cv2), directly and through
+  the scan runner's own rescue;
+- phase ``ba``: ``ScanSpeedRunner.run`` with ``anchor="ba"``, then (with no
+  clip) ``ba_schur`` (f32 and f64, dense and CG camera solver) at 20 cameras
+  x 1024 tracks and ``ba_dense`` at 256 tracks on the card, each held against
+  the same function on the CPU in f64 and timed per iteration, with the
+  share of the reduced camera solve.
+
+It checks that each path went through its kernels (the counts are set to 0
+just before a path's run and read just after) and recovered the clip's
+speed, and prints each kernel's launches by shape with launches x (time -
+bound). Any failure exits non-zero; there is no CPU fallback. The last line
+is a JSON object with ``"ok": true``.
 
 Each kernel's bound is the larger of its bytes over the card's memory rate
 and its f32 operations over the card's f32 rate (H100 SXM published peaks,
@@ -41,15 +55,28 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# Speeds the JAX package's ScanSpeedRunner (f32 solver, default widths)
-# recovers on the same synthetic clip (seed 0, 1920x1080, 20 frames), run on
-# the CPU; see CHANGES.md.
-JAX_CPU_SPEED_KMH = {"lanes": 39.9964228614167, "fast": 39.996056468425444}
+# Speeds the JAX package (f32 solver, default widths) recovers on the same
+# synthetic clip (seed 0, 1920x1080, 20 frames), run on the CPU: its
+# ScanSpeedRunner with each LK backend, its SpeedEstimator ("driver") and its
+# ScanSpeedRunner with anchor="ba" (scripts/jax_reference_speeds.py).
+JAX_CPU_SPEED_KMH = {"lanes": 39.9964228614167, "fast": 39.996056468425444,
+                     "driver": 39.97982552569373, "ba": 40.00776387593297}
 SPEED_VS_TRUTH = 0.05
 SPEED_VS_JAX = 0.02
 MAX_RESIDUAL_PX = 1.0
 N_POINTS = 1024
 N_FRAMES = 20
+PROFILE_FRAMES = 10  # the profiled runs: reading a 20-frame trace takes minutes
+ALWAYS_RESCUE = 10**6  # min_affine_inliers that sends every frame through the rescue
+# bundle adjustment on the card: the windowed size (cameras, tracks), the
+# track count of the dense-Jacobian solver, and the relative tolerances
+# against the same function on the CPU in f64 (points and cameras in the
+# reference's scale gauge, residual; the gauge factor itself 10 x looser)
+BA_CAMERAS, BA_TRACKS, BA_DENSE_TRACKS = 20, 1024, 256
+BA_RTOL = {"float64": 1e-8, "float32": 1e-3}
+# CG stops on its residual, and what is left of it lies along the nearly free
+# scale direction: with the CG camera solver the gauge factor is held to this
+BA_CG_GAUGE_TOL = 1e-2
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 # (S, N) of every slab extraction on the lanes path: stages 1-2, stage-3
@@ -397,6 +424,35 @@ def _counters():
             "extract_patches": k3.extract_patches}
 
 
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+        fn.launches_by_shape.clear()
+
+
+def _read_counts():
+    """({kernel: launches}, {kernel: {shape: launches}}) since the last reset."""
+    counters = _counters()
+    return ({name: fn.launches for name, fn in counters.items()},
+            {name: dict(fn.launches_by_shape) for name, fn in counters.items()})
+
+
+def _check_run(label, res, clip, launches, path_kernels, jax_kmh):
+    """The checks every driven path passes: its kernels launched, finite
+    translations, speed against the truth and the JAX CPU value, residual."""
+    missing = [k for k in path_kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the {label} path did not launch {missing}: {launches}")
+    if not np.isfinite(res.B[:, 3:6]).all():
+        raise AssertionError(f"{label}: non-finite per-frame translation")
+    if abs(res.speed_kmh - clip.speed_kmh) > SPEED_VS_TRUTH * clip.speed_kmh:
+        raise AssertionError(f"{label}: speed {res.speed_kmh} vs true {clip.speed_kmh}")
+    if jax_kmh is not None and abs(res.speed_kmh - jax_kmh) > SPEED_VS_JAX * jax_kmh:
+        raise AssertionError(f"{label}: speed {res.speed_kmh} vs JAX CPU {jax_kmh}")
+    if not res.residual_px <= MAX_RESIDUAL_PX:
+        raise AssertionError(f"{label}: mean residual {res.residual_px} px > {MAX_RESIDUAL_PX}")
+
+
 def _annotated(name, fn):
     from torch.profiler import record_function
 
@@ -408,10 +464,10 @@ def _annotated(name, fn):
 
 
 def _profile(run, lk_backend):
-    """One profiled warm run: device busy share (union of device activity
-    over the run's wall time), top kernels by device time (and the three
-    hand kernels' wherever they rank), and the device time spent under each
-    function of ``ANNOTATED[lk_backend]``."""
+    """One profiled warm run (of ``PROFILE_FRAMES`` frames): device busy
+    share (union of device activity over the run's wall time), top kernels
+    by device time (and the three hand kernels' wherever they rank), and the
+    device time spent under each function of ``ANNOTATED[lk_backend]``."""
     import importlib
 
     from torch.autograd import DeviceType
@@ -456,10 +512,10 @@ def _profile(run, lk_backend):
         us = sum(e.device_time_total for e in events
                  if e.name == name and e.device_type == DeviceType.CPU)
         shares += f"; {name} {us / 1e3:.1f} ms = {us / max(total_us, 1e-9):.1%} of kernel time"
-    print(f"profile {lk_backend}: wall {wall:.3f} s (profiled), device busy "
-          f"{busy / 1e6:.3f} s = {busy / 1e6 / wall:.1%}, kernel time {total_us / 1e3:.1f} ms "
-          f"in {len(spans)} device activities{shares} (trace read in "
-          f"{time.perf_counter() - t0:.1f} s)")
+    print(f"profile {lk_backend}, {PROFILE_FRAMES} frames: wall {wall:.3f} s (profiled), "
+          f"device busy {busy / 1e6:.3f} s = {busy / 1e6 / wall:.1%}, kernel time "
+          f"{total_us / 1e3:.1f} ms in {len(spans)} device activities{shares} (trace read "
+          f"in {time.perf_counter() - t0:.1f} s)")
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     for rank, (name, (n, t)) in enumerate(ranked):
         if rank < 12 or "lk_block" in name or "gather_windows" in name:
@@ -490,20 +546,16 @@ def phase_slice(dev, clip, lk_backend, path_kernels, rows):
                                             tracker=TrackerConfig(lk_backend=lk_backend)),
                              device=dev)
 
-    def run():
-        return runner.run(clip.reader, annotation=clip.annotation, n_frames=N_FRAMES,
+    def run(n_frames=N_FRAMES):
+        return runner.run(clip.reader, annotation=clip.annotation, n_frames=n_frames,
                           verbose=False)
 
     t0 = time.perf_counter()
     run()  # first run: library load, allocator and cuBLAS/cuSOLVER warm-up
     print(f"slice {lk_backend} cold run: {time.perf_counter() - t0:.2f} s")
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
-        fn.launches_by_shape.clear()
+    _reset_counts()
     res = run()
-    launches = {name: fn.launches for name, fn in counters.items()}
-    by_shape = {name: dict(fn.launches_by_shape) for name, fn in counters.items()}
+    launches, by_shape = _read_counts()
     wall = res.timings["wall_s"]
     jax_kmh = JAX_CPU_SPEED_KMH[lk_backend]
     print(f"slice {lk_backend} warm run: wall {wall:.3f} s, {N_FRAMES / wall:.3f} frames/s "
@@ -520,19 +572,241 @@ def phase_slice(dev, clip, lk_backend, path_kernels, rows):
               f"{n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
     for name in ("extract_slabs", "extract_patches"):
         _print_gaps(lk_backend, name, by_shape[name], rows[name])
-    missing = [k for k in path_kernels if launches[k] <= 0]
-    if missing:
-        raise AssertionError(f"the {lk_backend} path did not launch {missing}: {launches}")
-    if not np.isfinite(res.B[:, 3:6]).all():
-        raise AssertionError("non-finite per-frame translation")
-    if abs(res.speed_kmh - clip.speed_kmh) > SPEED_VS_TRUTH * clip.speed_kmh:
-        raise AssertionError(f"speed {res.speed_kmh} vs true {clip.speed_kmh}")
-    if abs(res.speed_kmh - jax_kmh) > SPEED_VS_JAX * jax_kmh:
-        raise AssertionError(f"speed {res.speed_kmh} vs JAX CPU {jax_kmh}")
-    if not res.residual_px <= MAX_RESIDUAL_PX:
-        raise AssertionError(f"mean residual {res.residual_px} px > {MAX_RESIDUAL_PX}")
-    _profile(run, lk_backend)
+    _check_run(lk_backend, res, clip, launches, path_kernels, jax_kmh)
+    _profile(lambda: run(PROFILE_FRAMES), lk_backend)
     return launches
+
+
+def phase_driver(dev, clip):
+    """The per-frame driver on the full-size clip: beside the scan runner in
+    turns (scan, driver, driver, scan; warm), its K1 and K2 launches, its
+    speed within the limits; then with the rescue forced on every frame
+    through the clip's known motion, directly and through the scan runner's
+    rescue branch: every frame's T23 must be the matcher's."""
+    from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
+    from velocity_tpu_torch.pipeline import SpeedEstimator
+    from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
+
+    solver = SolverConfig(dtype="float32")
+    run_kw = dict(annotation=clip.annotation, n_frames=N_FRAMES, verbose=False)
+    scan = ScanSpeedRunner(PipelineConfig(solver=solver), device=dev)
+    est = SpeedEstimator(PipelineConfig(solver=solver), device=dev)
+
+    walls = {"scan": [], "driver": []}
+    scan_res = scan.run(clip.reader, **run_kw)
+    walls["scan"].append(scan_res.timings["wall_s"])
+    _reset_counts()
+    res = est.run(clip.reader, **run_kw)
+    launches, by_shape = _read_counts()
+    walls["driver"].append(res.timings["wall_s"])
+    walls["driver"].append(est.run(clip.reader, **run_kw).timings["wall_s"])
+    walls["scan"].append(scan.run(clip.reader, **run_kw).timings["wall_s"])
+    fps = {k: [N_FRAMES / w for w in v] for k, v in walls.items()}
+    print(f"driver warm runs: wall {walls['driver'][0]:.3f} s and {walls['driver'][1]:.3f} s, "
+          f"{fps['driver'][0]:.3f} and {fps['driver'][1]:.3f} frames/s; the scan runner "
+          f"before and after: {walls['scan'][0]:.3f} s and {walls['scan'][1]:.3f} s, "
+          f"{fps['scan'][0]:.3f} and {fps['scan'][1]:.3f} frames/s")
+    same = np.array_equal(res.B, scan_res.B)
+    print(f"driver: speed {res.speed_kmh:.4f} km/h (true {clip.speed_kmh:.4f}, scan runner "
+          f"{scan_res.speed_kmh:.4f}, JAX CPU driver {JAX_CPU_SPEED_KMH['driver']}), residual "
+          f"{res.residual_px:.4f} px, trajectory bit-equal to the scan runner's: {same}; "
+          f"launches K1 {launches['lk_block']} K2 {launches['extract_slabs']} "
+          f"{by_shape['lk_block']} {by_shape['extract_slabs']}")
+    _check_run("driver", res, clip, launches, ("lk_block", "extract_slabs"),
+               JAX_CPU_SPEED_KMH["driver"])
+    if abs(res.speed_kmh - scan_res.speed_kmh) > 1e-3 * scan_res.speed_kmh:
+        raise AssertionError(f"driver speed {res.speed_kmh} vs scan runner "
+                             f"{scan_res.speed_kmh}: one generator order, no frame rescued")
+
+    # ---- the rescue forced on every frame ----
+    asked = []
+
+    def matcher(im_prev, im_cur, pts, valid):
+        M = clip.motion_affine(clip.frame_index(im_prev), clip.frame_index(im_cur))
+        asked.append(M)
+        return M
+
+    forced_cfg = PipelineConfig(solver=solver,
+                                tracker=TrackerConfig(min_affine_inliers=ALWAYS_RESCUE))
+    forced = SpeedEstimator(forced_cfg, device=dev, fallback_matcher=matcher)
+    step, used = forced._frame_step_with_fallback, []
+
+    def recording_step(*args):
+        out = step(*args)
+        used.append(out[9].cpu().numpy())
+        return out
+
+    forced._frame_step_with_fallback = recording_step
+    _reset_counts()
+    fres = forced.run(clip.reader, **run_kw)
+    flaunches, _ = _read_counts()
+    if len(asked) != N_FRAMES - 1 or len(used) != N_FRAMES - 1 or not all(
+            np.array_equal(a, u) for a, u in zip(asked, used)):
+        raise AssertionError(f"forced rescue: {len(asked)} matcher calls, {len(used)} steps, "
+                             "or a frame's T23 is not the matcher's")
+    print(f"driver, rescue forced on {len(asked)} frames: wall {fres.timings['wall_s']:.3f} s, "
+          f"{N_FRAMES / fres.timings['wall_s']:.3f} frames/s, speed {fres.speed_kmh:.4f} km/h, "
+          f"residual {fres.residual_px:.4f} px, every T23 the matcher's; launches K1 "
+          f"{flaunches['lk_block']} K2 {flaunches['extract_slabs']}")
+    _check_run("forced rescue", fres, clip, flaunches, ("lk_block", "extract_slabs"), None)
+
+    n_before = len(asked)
+    sres = ScanSpeedRunner(forced_cfg, device=dev, fallback_matcher=matcher).run(
+        clip.reader, **run_kw)
+    if len(asked) - n_before != N_FRAMES - 1 or sres.first_gray is not None:
+        raise AssertionError("the scan runner did not hand the collapsed clip to the driver")
+    if not np.allclose(sres.B, fres.B, rtol=1e-6, atol=1e-9):
+        raise AssertionError("the scan runner's rescue and the driver disagree")
+    print(f"scan runner, rescue forced: re-ran through the driver, speed {sres.speed_kmh:.4f} "
+          f"km/h, trajectory bit-equal to the driver's: {np.array_equal(sres.B, fres.B)}")
+
+
+def _ba_scene(nc, nt, dtype, dev):
+    """The windowed BA problem: ``nc`` cameras on a 3.3 m line, ``nt`` points
+    6-10 m away, 0.3 px of pixel noise, the structure and the camera track
+    perturbed (5 cm, 3 cm, 5 mrad). Made on the host from seed 0."""
+    from velocity_tpu_torch.geometry.projection import Intrinsics
+    from velocity_tpu_torch.solvers.ba import BAProblem
+
+    rng = np.random.default_rng(0)
+    f, cx, cy = 1993.9, 960.5, 540.5
+    pts = np.concatenate([rng.uniform(-2, 2, (nt, 2)), rng.uniform(6, 10, (nt, 1))], 1)
+    pos = np.stack([np.linspace(0, 3.3, nc), np.zeros(nc), np.zeros(nc)], 1)
+    pc = pts[None] + pos[:, None]
+    pix = np.stack([f * pc[..., 0] / pc[..., 2] + cx, f * pc[..., 1] / pc[..., 2] + cy], -1)
+    pix += rng.normal(0, 0.3, pix.shape)
+    cams0 = np.concatenate([pos, np.zeros((nc, 3))], 1)
+    cams0[1:, 0:3] += rng.normal(0, 0.03, (nc - 1, 3))
+    cams0[1:, 3:6] += rng.normal(0, 0.005, (nc - 1, 3))
+    pts0 = pts + rng.normal(0, 0.05, pts.shape)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=dtype, device=dev)
+
+    return BAProblem(intr=Intrinsics(*(t(v) for v in (f, f, cx, cy, 0.0))), pixels=t(pix),
+                     mask=torch.ones((nc, nt), dtype=torch.bool, device=dev),
+                     points0=t(pts0), cams0=t(cams0))
+
+
+def _events_ms(fn, rounds: int = 5) -> float:
+    """Milliseconds of one ``fn()`` call between two CUDA events, host reads
+    inside it included; median over ``rounds`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out)
+
+
+def _ba_case(label, solver, nt, dtype_name, cfg, dev, references):
+    """One BA solver on the card against itself on the CPU in f64: points,
+    cameras and residual within ``BA_RTOL``; ms per iteration; the share of
+    an iteration spent in the reduced camera solve (Schur solvers)."""
+    from velocity_tpu_torch.solvers import schur
+
+    dtype = getattr(torch, dtype_name)
+    key = (solver.__name__, nt, cfg.camera_solver)
+    if key not in references:
+        t0 = time.perf_counter()
+        references[key] = solver(_ba_scene(BA_CAMERAS, nt, torch.float64, "cpu"), cfg)
+        print(f"  CPU f64 reference {label}: {time.perf_counter() - t0:.2f} s, "
+              f"{references[key].iterations} iterations")
+    want = references[key]
+    prob = _ba_scene(BA_CAMERAS, nt, dtype, dev)
+    got = solver(prob, cfg)
+    rtol = BA_RTOL[dtype_name]
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    # monocular BA leaves the global scale to the damping alone, and rounding
+    # lets it drift: compare in the reference's scale gauge (the last
+    # camera's baseline), and hold the gauge factor itself to 10 x rtol
+    points, cams = got.points.double().cpu(), got.cams.double().cpu()
+    gauge = float(want.cams[-1, 0:3].norm() / cams[-1, 0:3].norm())
+    cams = torch.cat([cams[:, 0:3] * gauge, cams[:, 3:6]], dim=1)
+    errs = (rel(points * gauge, want.points), rel(cams, want.cams),
+            abs(float(got.residual_rms) - float(want.residual_rms)) / float(want.residual_rms))
+    ms = _events_ms(lambda: solver(prob, cfg)) / got.iterations
+    line = (f"BA {label} {dtype_name} nc {BA_CAMERAS} nt {nt}: {got.iterations} iterations "
+            f"(CPU f64 {want.iterations}), residual {float(got.residual_rms):.4f} px, vs CPU "
+            f"f64 points {errs[0]:.2e} cams {errs[1]:.2e} residual {errs[2]:.2e} (limit "
+            f"{rtol:g}) at scale gauge 1{gauge - 1:+.2e}; {ms:.3f} ms per iteration")
+    if solver is schur.ba_schur:
+        lam = cfg.damping / prob.intr.fx ** 2
+        blocks = schur.compute_blocks(prob.intr, prob, prob.points0, prob.cams0)
+        S, rhs, Vinv, gp, W = schur.schur_reduce(blocks, lam, dtype)
+        cg_iters = cfg.cg_max_iters if cfg.camera_solver == "cg" else 0
+        solve_ms = _events_ms(lambda: schur._solve_cameras(S, rhs, cfg.cg_tol, cg_iters))
+        dc = schur._solve_cameras(S, rhs, cfg.cg_tol, cg_iters)
+        parts = {
+            "blocks": lambda: schur.compute_blocks(prob.intr, prob, prob.points0, prob.cams0),
+            "reduce": lambda: schur.schur_reduce(blocks, lam, dtype),
+            "backsub": lambda: schur.schur_backsub(Vinv, gp, W, dc),
+            "rms read": lambda: float(torch.sqrt(torch.sum(dc * dc))),
+        }
+        line += (f"; on the first iteration's system the {S.shape[0]}x{S.shape[0]} camera "
+                 f"solve {solve_ms:.3f} ms = {solve_ms / ms:.0%} of a mean iteration, "
+                 + ", ".join(
+                     f"{name} {_events_ms(fn):.3f} ms" for name, fn in parts.items()))
+    print(line)
+    if got.iterations != want.iterations and dtype_name == "float64":
+        raise AssertionError(f"BA {label} {dtype_name}: {got.iterations} iterations on the "
+                             f"card, {want.iterations} on the CPU")
+    gauge_tol = BA_CG_GAUGE_TOL if cfg.camera_solver == "cg" else 10 * rtol
+    if not (max(errs) <= rtol and abs(gauge - 1) <= gauge_tol):
+        raise AssertionError(f"BA {label} {dtype_name}: {errs} above {rtol}, or the scale "
+                             f"gauge {gauge} off by more than {gauge_tol}")
+    return ms
+
+
+def phase_ba(dev, clip):
+    """The scan runner with the bundle-adjustment re-anchor on the clip."""
+    from velocity_tpu_torch.config import PipelineConfig, SolverConfig
+    from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
+
+    runner = ScanSpeedRunner(PipelineConfig(solver=SolverConfig(dtype="float32"), anchor="ba"),
+                             device=dev)
+    run_kw = dict(annotation=clip.annotation, n_frames=N_FRAMES, verbose=False)
+    runner.run(clip.reader, **run_kw)
+    _reset_counts()
+    res = runner.run(clip.reader, **run_kw)
+    launches, _ = _read_counts()
+    wall = res.timings["wall_s"]
+    print(f"anchor=ba warm run: wall {wall:.3f} s, {N_FRAMES / wall:.3f} frames/s, the BA "
+          f"re-anchor (host f64, {PipelineConfig().msv_frame + 1} cameras x {N_POINTS} "
+          f"tracks) {res.timings['msv_s']:.3f} s; speed {res.speed_kmh:.4f} km/h (true "
+          f"{clip.speed_kmh:.4f}, JAX CPU {JAX_CPU_SPEED_KMH['ba']}), residual "
+          f"{res.residual_px:.4f} px, launches K1 {launches['lk_block']} K2 "
+          f"{launches['extract_slabs']}")
+    _check_run("anchor=ba", res, clip, launches, ("lk_block", "extract_slabs"),
+               JAX_CPU_SPEED_KMH["ba"])
+
+
+def phase_ba_solvers(dev):
+    """The BA solvers on the card at the windowed size, each against itself
+    on the CPU in f64."""
+    from velocity_tpu_torch.config import BAConfig
+    from velocity_tpu_torch.solvers.ba import ba_dense
+    from velocity_tpu_torch.solvers.schur import ba_schur
+
+    references = {}
+    dense_cfg = BAConfig(max_iters=10)
+    cg_cfg = BAConfig(max_iters=10, camera_solver="cg")
+    for dtype_name in ("float32", "float64"):
+        _ba_case("schur, dense camera solve", ba_schur, BA_TRACKS, dtype_name, dense_cfg, dev,
+                 references)
+        _ba_case("schur, CG camera solve", ba_schur, BA_TRACKS, dtype_name, cg_cfg, dev,
+                 references)
+        _ba_case("dense Jacobian", ba_dense, BA_DENSE_TRACKS, dtype_name, dense_cfg, dev,
+                 references)
 
 
 def main() -> int:
@@ -557,6 +831,9 @@ def main() -> int:
     rows = {"lk_block": k1_rows, "extract_slabs": k2_rows, "extract_patches": k3_rows}
     lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"), rows)
     fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"), rows)
+    phase_driver(dev, clip)
+    phase_ba(dev, clip)
+    phase_ba_solvers(dev)
 
     k1_main = next(r for r in k1_rows if r["win"] == 51 and r["cubic"] and r.get("it0") == 0)
     k2_main = next(r for r in k2_rows if r["size"] == 72)

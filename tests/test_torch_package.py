@@ -23,8 +23,10 @@ MODULES = [
     "velocity_tpu_torch.ops.lk",
     "velocity_tpu_torch.ops.lk_fast",
     "velocity_tpu_torch.ops.lk_lanes",
+    "velocity_tpu_torch.ops.match",
     "velocity_tpu_torch.ops.patch_pallas",
     "velocity_tpu_torch.ops.ransac",
+    "velocity_tpu_torch.ops.robust",
     "velocity_tpu_torch.ops.slab_pallas",
     "velocity_tpu_torch.ops.warp",
     "velocity_tpu_torch.ops.window",
@@ -32,7 +34,10 @@ MODULES = [
     "velocity_tpu_torch.pipeline.scan",
     "velocity_tpu_torch.pipeline.speedest",
     "velocity_tpu_torch.pipeline.tracker",
+    "velocity_tpu_torch.solvers.ba",
+    "velocity_tpu_torch.solvers.linear_init",
     "velocity_tpu_torch.solvers.pose",
+    "velocity_tpu_torch.solvers.schur",
     "velocity_tpu_torch.solvers.triangulate",
     "velocity_tpu_torch.testing.synthetic_clip",
 ]
@@ -115,14 +120,11 @@ def test_runner_refuses_cuda_without_a_card():
 
 def test_unported_options_raise():
     """Options whose code is not ported yet raise, naming the ROADMAP item."""
-    from velocity_tpu_torch.config import PipelineConfig, TrackerConfig
-    from velocity_tpu_torch.pipeline.anchor import reanchor
+    from velocity_tpu_torch.config import TrackerConfig
     from velocity_tpu_torch.pipeline.tracker import _check_backend
 
     with pytest.raises(NotImplementedError, match="item 15"):
         _check_backend(TrackerConfig(shard_features=2))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        reanchor(PipelineConfig(anchor="ba"), None, 0.5, None, None, None, None, None)
 
 
 def test_lk_backends_select_their_engine():

@@ -9,54 +9,26 @@ two LK backends that track this clip end to end, "lanes" (the default) and
 sample the same hypotheses.
 """
 
-import dataclasses
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_clip import (N_FRAMES, SCALE, _cfg, _inject, _jax_gumbel, _jax_info,
+                         _jax_reads_clip, _jcfg, make_clip)
 
-import velocity_tpu.ingest.native_loader as jax_native_loader
-import velocity_tpu.ingest.video as jax_video
-from velocity_tpu.camera.annotations import Annotation as JaxAnnotation
-from velocity_tpu.camera.database import camera_info as jax_camera_info
-from velocity_tpu.config import PipelineConfig as JaxPipelineConfig
-from velocity_tpu.config import SolverConfig as JaxSolverConfig
-from velocity_tpu.config import TrackerConfig as JaxTrackerConfig
 from velocity_tpu.pipeline.roi import inside_bbox
 from velocity_tpu.pipeline.scan import ScanSpeedRunner as JaxScanSpeedRunner
 from velocity_tpu.pipeline.speedest import SpeedEstimator as JaxSpeedEstimator
 from velocity_tpu.pipeline.tracker import frame_pyramids_jit as jax_frame_pyramids
 from velocity_tpu.pipeline.tracker import fused_frame_step_pyr as jax_step
-from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
 from velocity_tpu_torch.convert import state_from_numpy
-from velocity_tpu_torch.pipeline import tracker as port_tracker
 from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
 from velocity_tpu_torch.pipeline.speedest import _init_features, _init_geometry
 from velocity_tpu_torch.pipeline.tracker import fused_frame_step_pyr
-from velocity_tpu_torch.testing.synthetic_clip import render_clip
 
 torch.set_num_threads(1)
 
-N_FRAMES, WIDTH, HEIGHT = 8, 480, 270
-MSV, FEATURES, TRIALS = 3, 128, 64
-SCALE = 0.5
-
 BACKENDS = ["lanes", "fast"]
-
-
-def _cfg(lk_backend="lanes"):
-    return PipelineConfig(solver=SolverConfig(dtype="float32"), msv_frame=MSV,
-                          tracker=TrackerConfig(max_features=FEATURES, ransac_trials=TRIALS,
-                                                lk_backend=lk_backend))
-
-
-def _jcfg(lk_backend="lanes"):
-    return JaxPipelineConfig(solver=JaxSolverConfig(dtype="float32"), msv_frame=MSV,
-                             tracker=JaxTrackerConfig(max_features=FEATURES,
-                                                      ransac_trials=TRIALS,
-                                                      lk_backend=lk_backend))
 
 
 CFG, JCFG = _cfg(), _jcfg()
@@ -64,39 +36,7 @@ CFG, JCFG = _cfg(), _jcfg()
 
 @pytest.fixture(scope="module")
 def clip():
-    return render_clip(n_frames=N_FRAMES, width=WIDTH, height=HEIGHT, seed=0)
-
-
-def _jax_info(clip):
-    """The clip's CameraInfo as the JAX package's type (its intrinsics are JAX)."""
-    info = jax_camera_info("synthetic.MOV", "iPhone 6s", width=WIDTH, height=HEIGHT,
-                           fps=30.0, frame_count=N_FRAMES)
-    return dataclasses.replace(info, focal_pix=np.asarray(clip.reader.info.focal_pix))
-
-
-def _jax_gumbel(n_frames):
-    """JAX's RANSAC noise in the order the runner draws it: for frame j,
-    key_j = split(PRNGKey(0), n)[j]; stage 1 and stage 2 each split once."""
-    keys = jax.random.split(jax.random.PRNGKey(0), n_frames)
-    draws = []
-    for j in range(1, n_frames):
-        key, k1 = jax.random.split(keys[j])
-        key, k2 = jax.random.split(key)
-        for k in (k1, k2):
-            g = jax.random.gumbel(k, (TRIALS, FEATURES), dtype=jnp.float32)
-            draws.append(torch.as_tensor(np.array(g)))
-    return keys, draws
-
-
-def _inject(monkeypatch, draws):
-    """Hand the port's RANSAC the given noise, one draw per call, in order."""
-    real_ransac = port_tracker.estimate_affine_ransac
-
-    def ransac_with_jax_noise(*args, **kwargs):
-        kwargs["gumbel"] = draws.pop(0)
-        return real_ransac(*args, **kwargs)
-
-    monkeypatch.setattr(port_tracker, "estimate_affine_ransac", ransac_with_jax_noise)
+    return make_clip()
 
 
 def test_frame0_init_matches_jax(clip):
@@ -170,40 +110,15 @@ def test_frame_step_matches_jax(clip, monkeypatch, lk_backend):
     assert abs(float(res) - float(jres)) < 0.05
 
 
-class _JaxReader:
-    """The synthetic clip behind the JAX package's VideoReader interface."""
-
-    def __init__(self, clip):
-        self.info = _jax_info(clip)
-        self._clip = clip
-
-    def frames(self, *args, **kwargs):
-        return self._clip.reader.frames(*args, **kwargs)
-
-    prefetch = frames
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        pass
-
-
-def _no_native_loader(*args, **kwargs):
-    raise OSError("frames come from the synthetic clip")
-
-
 @pytest.mark.parametrize("lk_backend", BACKENDS)
 def test_scan_run_matches_jax(clip, monkeypatch, lk_backend):
     """The whole ScanSpeedRunner.run, JAX on its own frames through a
     patched VideoReader, the port on the same clip with JAX's RANSAC noise:
     speed within 0.5%, per-frame translations within 1e-3 relative, mean
     residual within 0.05 px."""
-    monkeypatch.setattr(jax_video, "VideoReader", lambda *a, **k: _JaxReader(clip))
-    monkeypatch.setattr(jax_native_loader, "NativeVideoStream", _no_native_loader)
     ann = clip.annotation
     want = JaxScanSpeedRunner(_jcfg(lk_backend)).run(
-        "synthetic.MOV", annotation=JaxAnnotation(ann.q, ann.fname, ann.start_frame),
+        "synthetic.MOV", annotation=_jax_reads_clip(monkeypatch, clip),
         n_frames=N_FRAMES, verbose=False)
 
     _, draws = _jax_gumbel(N_FRAMES)

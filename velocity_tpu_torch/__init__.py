@@ -1,10 +1,13 @@
 """velocity_tpu_torch — the PyTorch/CUDA port of velocity_tpu.
 
-The scan speed-estimation path (``pipeline.scan.ScanSpeedRunner``) runs end
-to end on an NVIDIA Hopper GPU, with the default lanes LK engine or with
-``TrackerConfig(lk_backend="fast")``. Plain tensor code is PyTorch; the
-three TPU kernels of those paths are CUDA C++ under ``csrc/`` (built with
-nvcc for sm_90a at first use, loaded with ctypes, see ``cuda_build``):
+Speed estimation runs end to end on an NVIDIA Hopper GPU, as a batch over a
+clip (``pipeline.scan.ScanSpeedRunner``) or one frame at a time with the
+feature-match rescue (``SpeedEstimator``), with any of the three LK engines
+(``TrackerConfig(lk_backend=...)``) and with the MSV or the bundle-adjustment
+re-anchor (``PipelineConfig(anchor=...)``; ``solvers.schur.ba_schur``,
+``solvers.ba``). Plain tensor code is PyTorch; the three TPU kernels of
+those paths are CUDA C++ under ``csrc/`` (built with nvcc for sm_90a at
+first use, loaded with ctypes, see ``cuda_build``):
 
 - K2, slab extraction (``ops/slab_pallas.py``), replacing
   ``velocity_tpu/ops/slab_pallas.py:extract_slabs_dma``;
@@ -27,3 +30,7 @@ import torch as _torch
 _torch.set_float32_matmul_precision("highest")
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
+
+from velocity_tpu_torch.pipeline import RunResult, SpeedEstimator  # noqa: E402
+
+__all__ = ["RunResult", "SpeedEstimator"]

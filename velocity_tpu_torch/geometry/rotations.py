@@ -23,6 +23,32 @@ def rpy_to_matrix(rpy):
     return torch.stack([row0, row1, row2], dim=-2)
 
 
+def rpy_to_matrix_jacobian(rpy):
+    """(..., 3) roll, pitch, yaw -> (..., 3, 3, 3) derivative of
+    ``rpy_to_matrix``, laid out ``[i, j, param]``: the three derivative
+    matrices written out, so that a solver's inner loop needs no
+    differentiation pass."""
+    r, p, y = rpy[..., 0], rpy[..., 1], rpy[..., 2]
+    sr, cr = torch.sin(r), torch.cos(r)
+    sp, cp = torch.sin(p), torch.cos(p)
+    sy, cy = torch.sin(y), torch.cos(y)
+    zero = torch.zeros_like(r)
+
+    def matrix(rows):
+        return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
+
+    d_roll = matrix([[zero, cr * sp * cy + sr * sy, -sr * sp * cy + cr * sy],
+                     [zero, cr * sp * sy - sr * cy, -sr * sp * sy - cr * cy],
+                     [zero, cr * cp, -sr * cp]])
+    d_pitch = matrix([[-sp * cy, sr * cp * cy, cr * cp * cy],
+                      [-sp * sy, sr * cp * sy, cr * cp * sy],
+                      [-cp, -sr * sp, -cr * sp]])
+    d_yaw = matrix([[-cp * sy, -sr * sp * sy - cr * cy, -cr * sp * sy + sr * cy],
+                    [cp * cy, sr * sp * cy - cr * sy, cr * sp * cy + sr * sy],
+                    [zero, zero, zero]])
+    return torch.stack([d_roll, d_pitch, d_yaw], dim=-1)
+
+
 def matrix_to_rpy(C):
     """[roll, pitch, yaw] from a DCM: roll ``atan(C21/C22)``, pitch
     ``asin(-C20)``, yaw ``atan2(C10, C00)``."""

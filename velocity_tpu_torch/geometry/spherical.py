@@ -1,4 +1,4 @@
-"""Camera -> NED conversions (torch twin of ``velocity_tpu/geometry/spherical.py``)."""
+"""Spherical and NED conversions (torch twin of ``velocity_tpu/geometry/spherical.py``)."""
 
 from __future__ import annotations
 
@@ -20,3 +20,18 @@ def elevation_azimuth(x):
     el = torch.asin(-x[..., 2] / r)
     az = torch.atan2(x[..., 1], x[..., 0])
     return torch.stack([el, az], dim=-1)
+
+
+def cartesian_to_spherical(x):
+    """Cartesian (..., 3) -> spherical [range, elevation, azimuth] (..., 3)."""
+    r = torch.sqrt(torch.sum(x * x, dim=-1))
+    el = torch.asin(-x[..., 2] / r)
+    az = torch.atan2(x[..., 1], x[..., 0])
+    return torch.stack([r, el, az], dim=-1)
+
+
+def spherical_to_cartesian(s):
+    """Spherical [range, elevation, azimuth] (..., 3) -> cartesian (..., 3)."""
+    r, el, az = s[..., 0], s[..., 1], s[..., 2]
+    a = r * torch.cos(el)
+    return torch.stack([a * torch.cos(az), a * torch.sin(az), -r * torch.sin(el)], dim=-1)

@@ -1,11 +1,18 @@
 """Scale-transfer re-anchoring of the structure once baseline accumulates.
 
-Torch twin of ``velocity_tpu/pipeline/anchor.py``, MSV strategy: the
-reference's multi-view ray-intercept triangulation plus Gauss-Newton over the
-newest camera (fcnMSV1_t), preceded by the frame-0 planar-pose
-disambiguation. It runs on the host CPU in float64, once per video, as in the
-JAX design (triangulating distant background features amplifies noise).
-The bundle-adjustment strategy (``anchor="ba"``) is not ported yet.
+Torch twin of ``velocity_tpu/pipeline/anchor.py``. Two strategies, selected
+by ``PipelineConfig.anchor``:
+
+- "msv": the reference's active path, multi-view ray-intercept triangulation
+  plus Gauss-Newton over the newest camera (fcnMSV1_t), preceded by the
+  frame-0 planar-pose disambiguation;
+- "ba": the reference's dormant path, bundle adjustment over frames 0..i
+  that refines the structure and the camera track together (Schur solver).
+  Identity damping keeps the free monocular scale gauge pinned to the
+  plate-anchored init.
+
+Both run on the host CPU in float64, once per video, as in the JAX design
+(triangulating distant background features amplifies noise).
 """
 
 from __future__ import annotations
@@ -14,6 +21,8 @@ import numpy as np
 import torch
 
 from velocity_tpu_torch.config import PipelineConfig
+from velocity_tpu_torch.solvers.ba import BAProblem
+from velocity_tpu_torch.solvers.schur import ba_schur
 from velocity_tpu_torch.solvers.triangulate import msv_refine_translation
 
 F64 = torch.float64
@@ -101,12 +110,38 @@ def reanchor(
     q: np.ndarray | None = None,  # (4, 2) plate corners (enables the
     # frame-0 planar-pose disambiguation; None = trust the incoming B/p3)
 ):
-    """Return (p3_new, t_new or None, res_new or None) after the MSV
-    scale-transfer refinement, computed on the CPU in float64."""
-    if cfg.anchor == "ba":
-        raise NotImplementedError(
-            "anchor='ba': bundle adjustment is not ported yet (ROADMAP item 12)")
+    """Return (p3_new, t_new or None, res_new or None) after the
+    scale-transfer refinement, computed on the CPU in float64. ``t_new`` and
+    ``res_new`` (rows 0..i) replace the trajectory and residual columns when
+    the refinement re-solved them."""
     intr64 = cam.intrinsics(scale=scale).to(dtype=F64)
+    if cfg.anchor == "ba":
+        nf = track_px.shape[0]
+        # observations: frames x tracks; a track alive at frame i was alive
+        # in all prior frames
+        pix = np.nan_to_num(track_px.astype(np.float64), nan=0.0)
+        mask = np.repeat(vg[None, :], nf, axis=0) & np.isfinite(track_px[..., 0])
+        cams0 = np.zeros((nf, 6))
+        cams0[:, 0:3] = B[:nf, 0:3] - B[0, 0:3]  # t_j relative
+        prob = BAProblem(
+            intr=intr64,
+            pixels=torch.as_tensor(pix),
+            mask=torch.as_tensor(mask),
+            points0=torch.as_tensor(np.where(vg[:, None], p3, np.array([0.0, 0.0, 5.0]))),
+            cams0=torch.as_tensor(cams0),
+        )
+        # translation-only cameras: the pipeline's motion model holds R = I;
+        # free rotations are unidentifiable on these tiny baselines and
+        # corrupt the track
+        res = ba_schur(prob, cfg.ba, fix_rotations=True)
+        p3_new = np.array(p3)
+        p3_new[vg] = res.points.numpy()[vg]
+        # refined camera track -> absolute rows; the caller updates B
+        t_abs = B[0, 0:3] + res.cams.numpy()[:, 0:3]
+        return p3_new, t_abs, None
+
+    # default: MSV, preceded by the frame-0 planar-pose disambiguation when
+    # the plate corners q are given
     t_cur64 = np.asarray(t_cur, np.float64)
     origins = np.array(B[: track_px.shape[0], 0:3], np.float64)
     p3_base = np.array(p3)

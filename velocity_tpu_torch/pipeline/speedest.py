@@ -1,26 +1,45 @@
-"""Run results and the frame-0 initialisation of the speed pipeline.
+"""The per-frame speed-estimation driver, its run results and the frame-0
+initialisation.
 
-Torch twin of the parts of ``velocity_tpu/pipeline/speedest.py`` that the
-scan path uses: ``RunResult``, ``_fit_plane``, the frame-0 feature init
-(Harris in the plate ROI + subpixel refinement, on the device) and the
-frame-0 geometry (6-DoF plate solve + plane backprojection, on the host CPU
-in float64, as the JAX design keeps it). The per-frame driver
-(``SpeedEstimator``) is not ported yet.
+Torch twin of ``velocity_tpu/pipeline/speedest.py``. Frame protocol:
+
+  frame 0: Harris corners in the plate ROI + subpixel refinement (on the
+           device), 6-DoF plate solve and plane backprojection of all
+           features (on the host CPU in float64), R := I;
+  frame i: 3-stage KLT -> mask composition -> 3-parameter translation solve
+           on the plate-proximal subset -> speed integration; when stage 2
+           leaves too few survivors, a full-frame feature match supplies the
+           stage-3 affine and the fine stage and the solve run again;
+  frame msv_frame: the re-anchor (``pipeline/anchor.py``) replaces the
+           structure and widens the solve to all features.
+
+``SpeedEstimator.run`` decodes, uploads and steps one frame at a time;
+``ScanSpeedRunner`` (``pipeline/scan.py``) is the batch form of the same
+protocol and hands a clip whose tracking collapsed to this driver. The JAX
+package's transfer-lean fetch and packed summary vector answer its remote
+device link and are not carried over.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
+from functools import partial
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from velocity_tpu_torch.camera.annotations import Annotation, find_annotation, load_annotation
 from velocity_tpu_torch.camera.database import CameraInfo
 from velocity_tpu_torch.config import PipelineConfig, SolverConfig
 from velocity_tpu_torch.geometry.plate import license_plate_points
 from velocity_tpu_torch.geometry.projection import Intrinsics, image_to_world_plane
 from velocity_tpu_torch.ops.harris import corner_subpix, good_features
-from velocity_tpu_torch.pipeline.roi import bounding_rect
+from velocity_tpu_torch.pipeline import report
+from velocity_tpu_torch.pipeline.roi import bounding_rect, inside_bbox
+from velocity_tpu_torch.pipeline.tracker import (
+    ThreeStageTracker, _track_fine_p, frame_pyramids, fused_frame_step_pyr)
 from velocity_tpu_torch.solvers.pose import estimate_world_camera_pose
 
 F64 = torch.float64
@@ -57,9 +76,7 @@ class RunResult:
 
     def smoothed(self, degree: int = 3):
         """(distance_fit_m, speed_fit_kmh): polynomial-smoothed curves."""
-        from velocity_tpu_torch.pipeline.report import polyfit_speed
-
-        return polyfit_speed(self.S, degree)
+        return report.polyfit_speed(self.S, degree)
 
 
 def _fit_plane(p3, valid):
@@ -128,3 +145,307 @@ def _init_geometry(cfg: PipelineConfig, cam: CameraInfo, q: np.ndarray, p: np.nd
     p3 = p3.numpy().copy()
     p3[~valid] = 0.0
     return t0.numpy().astype(np.float64), p3, float(res0)
+
+
+def require_device(device, who: str) -> torch.device:
+    """``device`` as a ``torch.device``; raises where it names CUDA and
+    there is none (an entry point never carries on on the CPU by itself)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: device 'cuda' requested but CUDA is not available")
+    return device
+
+
+def resolve_annotation(video, annotation) -> Annotation:
+    """The run's annotation: given, loaded from a path, or found beside ``video``."""
+    if annotation is None:
+        vpath = Path(video)
+        return load_annotation(find_annotation(vpath, [vpath.parent.parent / "matlab",
+                                                       vpath.parent]))
+    if isinstance(annotation, Annotation):
+        return annotation
+    return load_annotation(annotation)
+
+
+def resolve_start(cfg: PipelineConfig, ann: Annotation, start_frame) -> int:
+    start = (start_frame if start_frame is not None else
+             (cfg.start_frame if cfg.start_frame is not None else ann.start_frame))
+    if start is None:
+        raise ValueError("no start frame (annotation lacks one; pass start_frame)")
+    return start
+
+
+def open_reader(video, platform: str):
+    """``video`` itself where it is a reader (``.info``,
+    ``.frames(start, count, step)``, context manager), else the cv2
+    ``VideoReader`` of that path."""
+    if hasattr(video, "frames"):
+        return video
+    from velocity_tpu_torch.ingest.video import VideoReader
+
+    return VideoReader(video, platform)
+
+
+def frames_available(cam: CameraInfo, start: int, n: int, step: int) -> int:
+    """``n`` cut to the frames the clip holds from ``start`` on."""
+    if not cam.frame_count:
+        return n
+    avail = -(-(int(cam.frame_count) - start) // step)
+    if avail <= 0:
+        raise ValueError(f"start frame {start} beyond video ({cam.frame_count})")
+    return min(n, avail)
+
+
+class SpeedEstimator:
+    """The per-frame driver, on ``device`` ("cuda" or "cpu").
+
+    ``fallback_matcher(im_prev, im_cur, pts, valid) -> (2, 3) affine`` (numpy
+    uint8 frames, numpy points and mask) replaces the cv2 feature match of
+    the rescue; without one the rescue needs ``cv2``.
+    """
+
+    def __init__(self, config: PipelineConfig = PipelineConfig(), device="cuda",
+                 fallback_matcher=None):
+        self.config = config
+        self.device = require_device(device, "SpeedEstimator")
+        self.tracker = ThreeStageTracker(config.tracker, fallback_matcher)
+
+    # ------------------------------------------------------------------ init
+    def _init_features(self, gray, q: np.ndarray):
+        """Frame-0 feature detection: Harris in the plate ROI + subpixel
+        refine, on the driver's device (``gray``: a host array or a tensor)."""
+        return _init_features(self.config, torch.as_tensor(gray).to(self.device), q)
+
+    def _init_geometry(self, cam: CameraInfo, q: np.ndarray, p: np.ndarray,
+                       valid: np.ndarray, scale: float):
+        """Frame-0 geometry: plate solve + plane backprojection (host, f64)."""
+        return _init_geometry(self.config, cam, q, p, valid, scale)
+
+    # ------------------------------------------------------------ replenish
+    def _replenish(self, gray, q, pts, vg, p3, t_abs, intr_np, min_live: int | None = None):
+        """Refill dead lanes with fresh Harris corners back-projected onto the
+        plane of the live structure; returns (pts, vg, p3, n_new).
+
+        Long videos and the wide-baseline stills burst shed tracks faster
+        than 20-frame clips, so their drivers re-seed dead lanes at window
+        or frame boundaries. Detection runs around the current plate
+        position (the tracked lanes 0..3) when the plate lanes are alive:
+        the annotation ``q`` is frame-0 geometry and the car moves. Plate
+        lanes themselves are never re-seeded: BA pins them as the metric
+        scale anchor.
+        """
+        cfg = self.config
+        live = int(vg.sum())
+        if min_live is None:
+            min_live = cfg.tracker.max_features // 2
+        if live >= min_live or live < 3:
+            return pts, vg, p3, 0
+        q_now = pts[0:4] if bool(vg[0:4].all()) else q
+        p_new, valid_new, _boxa, _boxb = self._init_features(gray, q_now)
+        n_pl, d_pl = _fit_plane(p3, vg)
+        fx, fy, cx, cy = intr_np
+        dead = ~vg
+        cand = valid_new & dead  # only fill lanes that are both free and found
+        cand[:4] = False
+        # ray of each candidate pixel in the current camera
+        rx = (p_new[:, 0] - cx) / fx
+        ry = (p_new[:, 1] - cy) / fy
+        rays = np.stack([rx, ry, np.ones_like(rx)], axis=1)
+        rays /= np.linalg.norm(rays, axis=1, keepdims=True)
+        # p = s*ray - t_abs on the plane n.p = d  =>  s = (d + n.t)/(n.ray)
+        denom = rays @ n_pl
+        s = np.where(np.abs(denom) > 1e-9, (d_pl + n_pl @ t_abs) / denom, np.nan)
+        p3_cand = s[:, None] * rays - t_abs[None, :]
+        ok = cand & np.isfinite(p3_cand).all(axis=1) & (s > 0)
+        pts = np.where(ok[:, None], p_new, pts)
+        p3 = np.where(ok[:, None], p3_cand, p3)
+        vg = vg | ok
+        return pts, vg, p3, int(ok.sum())
+
+    # ------------------------------------------------------------ frame step
+    def _frame_step_with_fallback(self, pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
+                                  p3, intr, generator, sdt, prev_gray, gray, t_prev):
+        """One ``fused_frame_step_pyr`` + the host feature-match rescue on
+        tracking collapse: when stage 2 leaves <= ``min_affine_inliers``
+        survivors, a full-frame match of ``prev_gray`` and ``gray`` (uint8,
+        host) supplies the affine prior, and the fine stage and the pose
+        solve run again. The matcher is the tracker's ``fallback_matcher``
+        where one was given, else ``affine_from_feature_match`` (cv2) at
+        half scale. Returns what ``fused_frame_step_pyr`` returns.
+        """
+        cfg = self.config
+        out = fused_frame_step_pyr(
+            pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
+            p3, intr, generator, cfg.tracker, cfg.solver, sdt, t_prev)
+        pyr_cur, spyr_cur, n2 = out[0], out[1], out[8]
+        if int(n2) > cfg.tracker.min_affine_inliers:
+            return out
+
+        matcher = self.tracker.fallback_matcher
+        if matcher is None:
+            from velocity_tpu_torch.ops.match import affine_from_feature_match
+
+            matcher = partial(affine_from_feature_match, scale=0.5)
+        pnp = pts_dev.cpu().numpy()
+        vnp = vg_dev.cpu().numpy()
+        if cfg.tracker.car_affine:
+            # car-anchored rescue: search only around the tracked plate so
+            # the match affine locks onto the car's motion group
+            lo = pnp[0:4].min(axis=0)
+            hi = pnp[0:4].max(axis=0)
+            m = cfg.tracker.car_margin * float(np.linalg.norm(hi - lo))
+            inbox = ((pnp[:, 0] >= lo[0] - m) & (pnp[:, 0] <= hi[0] + m)
+                     & (pnp[:, 1] >= lo[1] - m) & (pnp[:, 1] <= hi[1] + m))
+            vm = vnp & inbox
+            vnp = vm if vm.sum() >= 4 else vnp
+        T23 = torch.as_tensor(np.asarray(matcher(prev_gray, gray, pnp, vnp)),
+                              dtype=torch.float32, device=pts_dev.device)
+        p_new, vg_new = _track_fine_p(pyr_prev, pyr_cur, pts_dev, vg_dev, T23, cfg.tracker)
+        vp_new = vp_dev & vg_new
+        t0 = (t_prev.to(sdt) if t_prev is not None else
+              torch.tensor([0.0, 0.0, 1.0], dtype=sdt, device=pts_dev.device))
+        pose = estimate_world_camera_pose(
+            intr, p_new.to(sdt), p3, t0=t0,
+            R0=torch.eye(3, dtype=sdt, device=pts_dev.device), find_R=False,
+            mask=vp_new, config=cfg.solver)
+        return (pyr_cur, spyr_cur, p_new, vg_new, vp_new,
+                pose.t, pose.residual_rms, pose.p_proj, n2, T23)
+
+    # ------------------------------------------------------------------- run
+    def run(self, video, annotation=None, n_frames=None, start_frame=None,
+            verbose=True, collect_images=True) -> RunResult:
+        """Run the pipeline over ``video`` (a path or a reader, see
+        ``open_reader``), one frame at a time."""
+        from velocity_tpu_torch.pipeline.anchor import reanchor
+
+        cfg = self.config
+        dev = self.device
+        sdt = F64 if cfg.solver.dtype == "float64" else torch.float32
+        n = n_frames if n_frames is not None else cfg.n_frames
+        ann = resolve_annotation(video, annotation)
+        start = resolve_start(cfg, ann, start_frame)
+
+        with open_reader(video, cfg.platform) as vr:
+            cam = vr.info
+            n = frames_available(cam, start, n, cfg.read_speed)
+            scale = cfg.native_scale
+            q = ann.q * scale  # native-4K annotation -> this video's resolution
+            intr = cam.intrinsics(scale=scale).to(dtype=sdt, device=dev)
+
+            N = cfg.tracker.max_features
+            B = np.zeros((n, 14), np.float64)
+            S = np.zeros((n, 9), np.float64)
+            track_px = np.full((n, N, 2), np.nan, np.float32)
+            proj_px = np.full((n, N, 2), np.nan, np.float32)
+            valid_hist = np.zeros((n, N), bool)
+
+            # one generator per run, drawn from in frame order, as the scan
+            # runner's: the two give the same bits where no frame is rescued
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(0)
+            t_wall0 = time.perf_counter()
+            if verbose:
+                print(f"Starting image processing on {video} ...")
+                print(report.header())
+
+            read = vr.prefetch if hasattr(vr, "prefetch") else vr.frames
+            first_gray = last_gray = None
+            for i, fr in enumerate(read(start=start, count=n, step=cfg.read_speed)):
+                tic = time.perf_counter()
+                B[i, 12] = fr.time_s
+                B[i, 13] = fr.index
+                gray = fr.gray
+                prev_gray = last_gray
+                last_gray = gray
+                im_dev = torch.as_tensor(gray).to(dev)
+
+                if i == 0:
+                    first_gray = gray if collect_images else None
+                    p, valid, boxa, boxb = self._init_features(im_dev, q)
+                    pyr_prev, spyr_prev = frame_pyramids(im_dev, cfg.tracker)
+                    t_np, p3_np, res0 = self._init_geometry(cam, q, p, valid, scale)
+                    t = torch.as_tensor(t_np, dtype=sdt, device=dev)
+                    p3 = torch.as_tensor(p3_np, dtype=sdt, device=dev)
+                    residuals = res0
+                    B[0, 0:3] = t_np
+                    vg = valid.copy()
+                    vp = valid & inside_bbox(p, boxa)
+                    pts_dev = torch.as_tensor(p, dtype=torch.float32, device=dev)
+                    vg_dev = torch.as_tensor(vg, device=dev)
+                    vp_dev = torch.as_tensor(vp, device=dev)
+                    dt = np.nan
+                    dr = 0.0
+                    dist = 0.0
+                    t0_time = B[0, 12]
+                    p_proj_frame = None
+                else:
+                    (pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev,
+                     t, residuals, pproj_dev, _n2, _T23) = self._frame_step_with_fallback(
+                        pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
+                        p3, intr, gen, sdt, prev_gray, gray, t)
+                    vg = vg_dev.cpu().numpy()
+                    vp = vp_dev.cpu().numpy()
+                    p_proj_frame = pproj_dev.float().cpu().numpy()
+                    tnp = t.cpu().numpy().astype(np.float64)
+
+                    dt = B[i, 12] - B[i - 1, 12]
+                    dr = float(np.linalg.norm(tnp + B[0, 0:3] - B[i - 1, 0:3]))
+                    dist += dr
+                    B[i, 3:6] = tnp
+                    B[i, 0:3] = B[0, 0:3] + tnp
+
+                track_px[i, vg] = pts_dev.cpu().numpy()[vg]
+                valid_hist[i] = vg
+                if p_proj_frame is not None:
+                    proj_px[i, vp] = p_proj_frame[vp]
+
+                if i == cfg.msv_frame:
+                    # scale transfer (once per video; host f64, see anchor.py)
+                    p3_new, t_abs, res_new = reanchor(
+                        cfg, cam, scale, track_px[: i + 1], vg, B,
+                        t.cpu().numpy().astype(np.float64), p3.cpu().numpy(),
+                        q=np.asarray(q, np.float64))
+                    p3 = torch.as_tensor(p3_new, dtype=sdt, device=dev)
+                    if t_abs is not None:  # the anchor re-solved the trajectory
+                        B[: i + 1, 0:3] = t_abs
+                        B[: i + 1, 3:6] = t_abs - t_abs[0]
+                        t = torch.as_tensor(t_abs[-1] - t_abs[0], dtype=sdt, device=dev)
+                        # rewrite the rows already recorded in the new gauge;
+                        # this frame's own row below keeps the step it
+                        # measured before the re-anchor, as in the JAX driver
+                        dist = 0.0
+                        for r in range(i + 1):
+                            drr = (float(np.linalg.norm(B[r, 0:3] - B[r - 1, 0:3]))
+                                   if r > 0 else 0.0)
+                            dist += drr
+                            S[r, 6] = drr
+                            S[r, 7] = dist
+                            dtr = S[r, 4]
+                            S[r, 8] = (drr / dtr * 3.6
+                                       if r > 0 and np.isfinite(dtr) and dtr > 0 else np.nan)
+                            if res_new is not None:
+                                S[r, 3] = res_new[r]
+                    vp = vg.copy()
+                    vp_dev = torch.as_tensor(vp, device=dev)
+
+                S[i, :] = (
+                    i, time.perf_counter() - tic, float(vg.sum()), float(residuals), dt,
+                    B[i, 12] - t0_time, dr, dist,
+                    dr / dt * 3.6 if np.isfinite(dt) and dt > 0 else np.nan,
+                )
+                if verbose:
+                    print(report.row(S[i]))
+
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            wall = time.perf_counter() - t_wall0
+            if verbose:
+                print(report.summary(S))
+                print(f"Processed {n:g} images in {wall:.2f}s ({n / wall:.2f}fps)\n")
+
+        return RunResult(
+            S=S, B=B, track_px=track_px, proj_px=proj_px, valid=valid_hist,
+            plate_box=boxa, roi_box=boxb, camera=cam, config=cfg,
+            first_gray=first_gray, last_gray=last_gray if collect_images else None,
+            timings={"wall_s": wall, "fps": n / wall},
+        )

@@ -6,7 +6,10 @@
 3. RANSAC affine from the stage-2 survivors, then fine LK (win 51, one
    level) through that affine with forward-backward gate 0.3 px;
 then the masked translation LM. ``fused_frame_step_pyr`` is one frame of
-that, on pyramids built once per frame and carried to the next.
+that, on pyramids built once per frame and carried to the next;
+``fused_frame_step``, ``_track_stages``, ``_track_fine`` and
+``ThreeStageTracker.track`` are the image-input forms, which rebuild the
+previous frame's pyramids at every call.
 
 ``TrackerConfig.lk_backend`` picks the LK engine: "lanes" (the default,
 ``ops/lk_lanes.py``, on the carried pyramids), "fast" (``ops/lk_fast.py``)
@@ -15,6 +18,8 @@ rebuild their pyramids inside each call, as in JAX.
 """
 
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -57,6 +62,14 @@ def frame_pyramids(im, cfg: TrackerConfig, dtype=torch.float32):
     small_img = resize_nearest(f, cfg.coarse_scale)
     small = tuple(build_pyramid(small_img, cfg.lk_coarse.max_level))
     return full, small
+
+
+class TrackOutput(NamedTuple):
+    points: torch.Tensor  # (N, 2) tracked positions (valid lanes only meaningful)
+    valid: torch.Tensor  # (N,) bool: input valid & stage-3 survival
+    small_cur: torch.Tensor  # 1/4-scale current frame (for reuse next frame)
+    affine: torch.Tensor  # (2, 3) stage-3 affine prior actually used
+    n_stage2: torch.Tensor  # stage-2 survivor count (fallback trigger)
 
 
 def _car_mask(pts, valid, cfg: TrackerConfig):
@@ -143,6 +156,28 @@ def _track_fine_p(pyr_prev, pyr_cur, pts, valid, T23, cfg: TrackerConfig):
     return p3, v3
 
 
+def _track_stages(im_prev, im_cur, small_prev, pts, valid, generator, cfg: TrackerConfig):
+    """Image-input form of ``_track_stages_p`` (rebuilds the pyramids at
+    every call): returns (1/4-scale current frame, T23, n_stage2)."""
+    dtype = pts.dtype
+    L = cfg.lk_coarse.max_level
+    pyr_prev = tuple(build_pyramid(im_prev.to(dtype), L))
+    pyr_cur, spyr_cur = frame_pyramids(im_cur, cfg, dtype)
+    spyr_prev = tuple(build_pyramid(small_prev.to(dtype), L))
+    T23, n2 = _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
+                              generator, cfg)
+    return spyr_cur[0], T23, n2
+
+
+def _track_fine(im_prev, im_cur, pts, valid, T23, cfg: TrackerConfig):
+    """Image-input form of ``_track_fine_p``."""
+    dtype = pts.dtype
+    L = cfg.lk_fine.max_level
+    pyr_prev = tuple(build_pyramid(im_prev.to(dtype), L))
+    pyr_cur = tuple(build_pyramid(im_cur.to(dtype), L))
+    return _track_fine_p(pyr_prev, pyr_cur, pts, valid, T23, cfg)
+
+
 def _step_core(pyr_prev, spyr_prev, pyr_cur, spyr_cur, pts, vg, vp, p3, intr,
                generator, t0, cfg, solver_cfg, solver_dtype):
     """Track + mask composition + pose solve on prebuilt pyramids."""
@@ -196,3 +231,59 @@ def fused_frame_step_pyr(
     outs = _step_core(pyr_prev, spyr_prev, pyr_cur, spyr_cur, pts, vg, vp, p3, intr,
                       generator, t0, cfg, solver_cfg, solver_dtype)
     return (pyr_cur, spyr_cur) + outs
+
+
+def fused_frame_step(
+    im_prev,
+    im_cur,
+    small_prev,
+    pts,
+    vg,
+    vp,
+    p3,
+    intr,
+    generator,
+    cfg: TrackerConfig,
+    solver_cfg=None,
+    solver_dtype=torch.float32,
+):
+    """Image-input frame step (rebuilds the previous frame's pyramids):
+    returns (pts', vg', vp', small_cur, t, residual_rms, p_proj, n_stage2,
+    T23). Steady-state drivers use ``fused_frame_step_pyr``."""
+    L = cfg.lk_coarse.max_level
+    pyr_prev = tuple(build_pyramid(im_prev.to(torch.float32), L))
+    spyr_prev = tuple(build_pyramid(small_prev.to(torch.float32), L))
+    pyr_cur, spyr_cur = frame_pyramids(im_cur, cfg)
+    (p_new, vg_new, vp_new, t, res, pproj, n2, T23) = _step_core(
+        pyr_prev, spyr_prev, pyr_cur, spyr_cur, pts, vg, vp, p3, intr,
+        generator, None, cfg, solver_cfg, solver_dtype)
+    return p_new, vg_new, vp_new, spyr_cur[0], t, res, pproj, n2, T23
+
+
+class ThreeStageTracker:
+    """A ``TrackerConfig`` bound to an optional fallback matcher.
+
+    ``fallback_matcher(im_prev, im_cur, pts, valid) -> (2, 3) affine`` (numpy
+    in, numpy out) stands in for the reference's SURF full-frame rescue when
+    stage 2 leaves too few survivors. ``track`` uses the stage-1 RANSAC
+    model where none was given; the per-frame driver
+    (``pipeline/speedest.py``) then runs the cv2 feature match.
+    """
+
+    def __init__(self, cfg: TrackerConfig, fallback_matcher: Callable | None = None):
+        self.cfg = cfg
+        self.fallback_matcher = fallback_matcher
+
+    def track(self, im_prev, im_cur, small_prev, pts, valid, generator=None) -> TrackOutput:
+        cfg = self.cfg
+        small_cur, T23, n2 = _track_stages(im_prev, im_cur, small_prev, pts, valid,
+                                           generator, cfg)
+        if self.fallback_matcher is not None and int(n2) <= cfg.min_affine_inliers:
+            M = self.fallback_matcher(im_prev.cpu().numpy(), im_cur.cpu().numpy(),
+                                      pts.cpu().numpy(), valid.cpu().numpy())
+            T23 = torch.as_tensor(M, dtype=pts.dtype, device=pts.device)
+        p3, v3 = _track_fine(im_prev, im_cur, pts, valid, T23, cfg)
+        return TrackOutput(points=p3, valid=v3, small_cur=small_cur, affine=T23, n_stage2=n2)
+
+    def initial_small(self, im_prev):
+        return resize_nearest(im_prev, self.cfg.coarse_scale)

@@ -1,1 +1,2 @@
-"""LM pose solvers and MSV triangulation."""
+"""LM pose solvers, MSV triangulation, the linear pose initializers and
+bundle adjustment (dense, constrained, Schur)."""

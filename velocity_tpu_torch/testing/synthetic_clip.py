@@ -69,6 +69,29 @@ class SyntheticClip:
     reader: SyntheticVideoReader
     annotation: Annotation  # q in native (2x) pixel coordinates
     speed_kmh: float  # true speed of the car relative to the camera
+    plane_to_image: np.ndarray  # (n_frames, 3, 3) homographies, plate plane (m) -> pixels
+
+    def motion_affine(self, i_prev: int, i_cur: int) -> np.ndarray:
+        """The (2, 3) float32 affine that best maps the car rear's pixels in
+        frame ``i_prev`` to frame ``i_cur`` (least squares over a grid of
+        the car's plane): what a feature match of the two frames estimates."""
+        X, Y = np.meshgrid(np.linspace(*CAR_X, 9), np.linspace(*CAR_Y, 7))
+        plane = np.stack([X.ravel(), Y.ravel(), np.ones(X.size)], axis=1)
+
+        def pixels(i):
+            ph = plane @ self.plane_to_image[i].T
+            return ph[:, :2] / ph[:, 2:]
+
+        src = np.concatenate([pixels(i_prev), np.ones((len(plane), 1))], axis=1)
+        M, *_ = np.linalg.lstsq(src, pixels(i_cur), rcond=None)
+        return M.T.astype(np.float32)
+
+    def frame_index(self, gray: np.ndarray) -> int:
+        """Which frame of the clip ``gray`` is (frames differ by their noise)."""
+        for i, g in enumerate(self.reader.grays):
+            if np.array_equal(g, gray):
+                return i
+        raise ValueError("not a frame of this clip")
 
 
 def _blur(img: np.ndarray, sigma: float) -> np.ndarray:
@@ -189,10 +212,11 @@ def render_clip(n_frames: int = 20, width: int = 1920, height: int = 1080,
     pix = np.stack([xs, ys, np.ones_like(xs)], axis=-1)  # (H, W, 3)
 
     grays = np.empty((n_frames, height, width), np.uint8)
+    # plane point (X, Y, 0) -> camera X*R[0] + Y*R[1] + t -> pixel via K
+    plane_to_image = np.stack([K @ np.stack([R[0], R[1], t_cam[i]], axis=1)
+                               for i in range(n_frames)])
     for i in range(n_frames):
-        # plane point (X, Y, 0) -> camera X*R[0] + Y*R[1] + t -> pixel via K
-        Hm = K @ np.stack([R[0], R[1], t_cam[i]], axis=1)
-        q = pix @ np.linalg.inv(Hm).T
+        q = pix @ np.linalg.inv(plane_to_image[i]).T
         X = q[..., 0] / q[..., 2]
         Y = q[..., 1] / q[..., 2]
         car = _sample(tex, (X - CAR_X[0]) / TEXEL_M, (Y - CAR_Y[0]) / TEXEL_M)
@@ -212,4 +236,4 @@ def render_clip(n_frames: int = 20, width: int = 1920, height: int = 1080,
     dv = np.diff(t_cam, axis=0)
     speed = float(np.linalg.norm(dv, axis=1).mean() * FPS * 3.6)
     return SyntheticClip(reader=SyntheticVideoReader(grays, info), annotation=ann,
-                         speed_kmh=speed)
+                         speed_kmh=speed, plane_to_image=plane_to_image)
