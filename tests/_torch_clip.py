@@ -1,6 +1,7 @@
 """What the port's run-level tests share: the small synthetic clip's size and
 the configurations of both packages, JAX's RANSAC noise in the order each JAX
-runner draws it, and the clip behind the JAX package's reader interface."""
+runner draws it, and the clip (or its stills burst) behind the JAX package's
+reader interfaces."""
 
 import dataclasses
 
@@ -44,11 +45,16 @@ def _jcfg(lk_backend="lanes", anchor="msv", **tracker):
                                                       lk_backend=lk_backend, **tracker))
 
 
+def _jax_camera(info):
+    """A port CameraInfo as the JAX package's type (its intrinsics are JAX)."""
+    jinfo = jax_camera_info(info.filename, info.platform, width=info.width, height=info.height,
+                            fps=info.fps, frame_count=info.frame_count)
+    return dataclasses.replace(jinfo, focal_pix=np.asarray(info.focal_pix))
+
+
 def _jax_info(clip):
-    """The clip's CameraInfo as the JAX package's type (its intrinsics are JAX)."""
-    info = jax_camera_info("synthetic.MOV", "iPhone 6s", width=WIDTH, height=HEIGHT,
-                           fps=30.0, frame_count=N_FRAMES)
-    return dataclasses.replace(info, focal_pix=np.asarray(clip.reader.info.focal_pix))
+    """The clip's CameraInfo as the JAX package's type."""
+    return _jax_camera(clip.reader.info)
 
 
 def _frame_draws(frame_key):
@@ -61,11 +67,14 @@ def _frame_draws(frame_key):
             for k in (k1, k2)]
 
 
-def _jax_gumbel(n_frames):
+def _jax_gumbel(n_frames, seed=0, frames=None):
     """JAX's RANSAC noise in the order the scan runner draws it: the key of
-    frame j is split(PRNGKey(0), n)[j]."""
-    keys = jax.random.split(jax.random.PRNGKey(0), n_frames)
-    return keys, [g for j in range(1, n_frames) for g in _frame_draws(keys[j])]
+    frame j is split(PRNGKey(seed), n)[j]; ``frames`` picks the frames
+    (default 1..n-1), as ``run_batch`` draws lane ``seed`` segment by
+    segment."""
+    keys = jax.random.split(jax.random.PRNGKey(seed), n_frames)
+    frames = range(1, n_frames) if frames is None else frames
+    return keys, [g for j in frames for g in _frame_draws(keys[j])]
 
 
 def _jax_gumbel_driver(n_frames):
@@ -89,6 +98,22 @@ def _inject(monkeypatch, draws):
         return real_ransac(*args, **kwargs)
 
     monkeypatch.setattr(port_tracker, "estimate_affine_ransac", ransac_with_jax_noise)
+
+
+class _JaxStillsReader:
+    """A stills burst (``SyntheticClip.stills()``) behind the JAX package's
+    StillsReader interface."""
+
+    def __init__(self, burst):
+        self._burst = burst
+        self.info = _jax_camera(burst.info)
+        self.paths = burst.paths
+
+    def frames(self):
+        return self._burst.frames()
+
+    def yaw_deg(self, index=0):
+        return self._burst.yaw_deg(index)
 
 
 class _JaxReader:

@@ -16,8 +16,11 @@ ROOT = Path(__file__).resolve().parent.parent
 
 MODULES = [
     "velocity_tpu_torch",
+    "velocity_tpu_torch.camera.exif",
     "velocity_tpu_torch.convert",
     "velocity_tpu_torch.cuda_build",
+    "velocity_tpu_torch.geometry.geodesy",
+    "velocity_tpu_torch.ingest.stills",
     "velocity_tpu_torch.ops.harris",
     "velocity_tpu_torch.ops.interp",
     "velocity_tpu_torch.ops.lk",
@@ -31,8 +34,10 @@ MODULES = [
     "velocity_tpu_torch.ops.warp",
     "velocity_tpu_torch.ops.window",
     "velocity_tpu_torch.pipeline.anchor",
+    "velocity_tpu_torch.pipeline.multivideo",
     "velocity_tpu_torch.pipeline.scan",
     "velocity_tpu_torch.pipeline.speedest",
+    "velocity_tpu_torch.pipeline.stills",
     "velocity_tpu_torch.pipeline.tracker",
     "velocity_tpu_torch.solvers.ba",
     "velocity_tpu_torch.solvers.linear_init",
@@ -40,6 +45,9 @@ MODULES = [
     "velocity_tpu_torch.solvers.schur",
     "velocity_tpu_torch.solvers.triangulate",
     "velocity_tpu_torch.testing.synthetic_clip",
+    "velocity_tpu_torch.utils",
+    "velocity_tpu_torch.utils.profiling",
+    "velocity_tpu_torch.utils.strings",
 ]
 
 
@@ -116,6 +124,21 @@ def test_runner_refuses_cuda_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         ScanSpeedRunner(device="cuda")
+
+
+@pytest.mark.parametrize("entry", ["StillsSpeedEstimator", "run_batch"])
+def test_stills_and_batch_refuse_cuda_without_a_card(entry):
+    """The stills driver and the batch runner default to the card and raise
+    without one, before they open any input."""
+    from velocity_tpu_torch.pipeline.multivideo import run_batch
+    from velocity_tpu_torch.pipeline.stills import StillsSpeedEstimator
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    call = {"StillsSpeedEstimator": StillsSpeedEstimator,
+            "run_batch": lambda: run_batch(["a.MOV", "b.MOV"])}[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call()
 
 
 def test_unported_options_raise():

@@ -1,10 +1,12 @@
 """velocity_tpu_torch — the PyTorch/CUDA port of velocity_tpu.
 
 Speed estimation runs end to end on an NVIDIA Hopper GPU, as a batch over a
-clip (``pipeline.scan.ScanSpeedRunner``) or one frame at a time with the
-feature-match rescue (``SpeedEstimator``), with any of the three LK engines
-(``TrackerConfig(lk_backend=...)``) and with the MSV or the bundle-adjustment
-re-anchor (``PipelineConfig(anchor=...)``; ``solvers.schur.ba_schur``,
+clip (``pipeline.scan.ScanSpeedRunner``), one frame at a time with the
+feature-match rescue (``SpeedEstimator``), over a stills burst with EXIF
+timing and GPS georegistration (``pipeline.stills.StillsSpeedEstimator``)
+or over several clips at once (``pipeline.multivideo.run_batch``), with any
+of the three LK engines (``TrackerConfig(lk_backend=...)``) and with the MSV
+or the bundle-adjustment re-anchor (``PipelineConfig(anchor=...)``; ``solvers.schur.ba_schur``,
 ``solvers.ba``). Plain tensor code is PyTorch; the three TPU kernels of
 those paths are CUDA C++ under ``csrc/`` (built with nvcc for sm_90a at
 first use, loaded with ctypes, see ``cuda_build``):

@@ -2,12 +2,22 @@
 
 A planar car rear carrying a Chile license plate recedes from the camera at
 a known speed while drifting sideways, over a smooth low-contrast static
-background. It is seen through the iPhone 6s video intrinsics at
+background. By default it is seen through the iPhone 6s video intrinsics at
 ``native_scale=0.5`` (the geometry of the reference's 1920x1080 clips), so
 the plate-anchored pipeline can recover the speed. The reader has the
 interface of ``ingest.video.VideoReader`` that the runner uses (``.info``,
 ``.frames``, context manager); frames are rendered once when the clip is
 built.
+
+A stills burst is the same scene rendered at every ``stride``-th instant
+through the stills camera (a ``.JPG`` file name selects the stills focal,
+3486 px at 4032 wide, at ``native_scale=1.0``); ``SyntheticClip.stills()``
+puts it behind the interface of ``ingest.stills.StillsReader`` with a GPS
+fix and a capture time per still.
+
+``render_burst`` and ``render_lanes`` are the full-size scenes of
+``chip_smoke.py``'s phases ``stills`` and ``multivideo``, which
+``scripts/jax_reference_speeds.py`` runs through the JAX package.
 
 The pipeline's model holds exactly here: every textured point lies on the
 plate plane, the camera is static and the car does not rotate, so a tracker
@@ -18,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -35,12 +46,23 @@ TEXEL_M = 0.004  # car texture resolution
 SPEED_KMH = 40.0  # of the car relative to the camera
 DEPTH0_M = 3.0  # plate depth at frame 0 (the annotated real clip's plate is ~4 m away)
 NOISE = 1.0  # sensor noise, gray levels (std)
+GPS_FIX = (-33.45, -70.66, 520.0)  # the stills' camera fix: lat, lon (deg), alt (m)
+YAW_DEG = 32.56  # the stills' true-north camera heading (deg)
+# the full-size stills burst of render_burst (the real burst IMG_4122-4133 is
+# 12 stills of 4032x3024), seen through the stills focal at native_scale 1
+STILLS_N, STILLS_SIZE = 12, (4032, 3024)
+STILLS_BURST = dict(speed_kmh=40.0, depth0_m=4.0, fps=30.0, stride=3, filename="synthetic.JPG",
+                    native_scale=1.0)
+# (seed, speed km/h) of each 1080p clip of render_lanes
+BATCH_LANES = ((0, 40.0), (1, 30.0), (2, 50.0))
+LANE_FRAMES = 20
 
 
 class SyntheticVideoReader:
     """``VideoReader``-compatible reader over pre-rendered uint8 frames."""
 
     def __init__(self, grays: np.ndarray, info: CameraInfo, fps: float = FPS):
+        """``fps``: the rate of the rendered frames (frame i is at i / fps)."""
         self.grays = grays
         self.info = info
         self.fps = fps
@@ -64,12 +86,39 @@ class SyntheticVideoReader:
         self.release()
 
 
+class SyntheticStillsReader:
+    """``StillsReader``-compatible reader over pre-rendered uint8 stills:
+    ``.info``, ``.paths``, ``.frames()`` yielding (index, gray, llat) with
+    llat = [lat, lon, alt, seconds], ``.yaw_deg(index)``."""
+
+    def __init__(self, grays: np.ndarray, info: CameraInfo, fps: float):
+        """Still i was taken at i / ``fps`` seconds, from ``GPS_FIX``."""
+        self.grays = grays
+        self.info = info
+        self.fps = fps
+        stem, ext = Path(info.filename).stem, info.extension
+        self.paths = [f"{stem}_{i:04d}{ext}" for i in range(len(grays))]
+
+    def frames(self):
+        for i, g in enumerate(self.grays):
+            yield i, g.copy(), np.array([*GPS_FIX, i / self.fps])
+
+    def yaw_deg(self, index: int = 0) -> float | None:
+        return YAW_DEG
+
+
 @dataclass
 class SyntheticClip:
     reader: SyntheticVideoReader
-    annotation: Annotation  # q in native (2x) pixel coordinates
+    annotation: Annotation  # q in native pixel coordinates (image / native_scale)
     speed_kmh: float  # true speed of the car relative to the camera
     plane_to_image: np.ndarray  # (n_frames, 3, 3) homographies, plate plane (m) -> pixels
+
+    def stills(self) -> SyntheticStillsReader:
+        """The clip's frames as a stills burst, one capture time per frame."""
+        r = self.reader
+        info = dataclasses.replace(r.info, fps=0.0, frame_count=len(r.grays))
+        return SyntheticStillsReader(r.grays, info, r.fps)
 
     def motion_affine(self, i_prev: int, i_cur: int) -> np.ndarray:
         """The (2, 3) float32 affine that best maps the car rear's pixels in
@@ -185,26 +234,33 @@ def _rotation(yaw: float, pitch: float) -> np.ndarray:
 
 
 def render_clip(n_frames: int = 20, width: int = 1920, height: int = 1080,
-                seed: int = 0) -> SyntheticClip:
+                seed: int = 0, *, speed_kmh: float = SPEED_KMH, depth0_m: float = DEPTH0_M,
+                fps: float = FPS, stride: int = 1, filename: str = "synthetic.MOV",
+                native_scale: float = NATIVE_SCALE) -> SyntheticClip:
     """Render the clip; ``width``/``height`` scale the whole view (the
     focal length scales with the width, so a small clip shows the same
-    scene at lower resolution)."""
+    scene at lower resolution). Frame i shows the instant ``i * stride /
+    fps``. ``filename``'s extension picks the camera's video or stills
+    focal, seen at ``native_scale`` (``PipelineConfig.native_scale``)."""
     rng = np.random.default_rng(seed)
-    info = camera_info("synthetic.MOV", "iPhone 6s", width=width, height=height,
-                       fps=FPS, frame_count=n_frames)
-    # iPhone 6s video focal at 1920 px wide; narrower clips see the same view
-    info = dataclasses.replace(info, focal_pix=info.focal_pix * (width / 1920.0))
-    f = float(info.focal_pix[0]) * NATIVE_SCALE
+    info = camera_info(filename, "iPhone 6s", width=width, height=height,
+                       fps=fps, frame_count=n_frames)
+    # the iPhone 6s focal at the native width times native_scale (1920 px
+    # for video); narrower images see the same view
+    native_w = (info.spec.video_size if info.is_video else info.spec.stills_size)[0]
+    info = dataclasses.replace(info, focal_pix=info.focal_pix * (width / (native_w * native_scale)))
+    f = float(info.focal_pix[0]) * native_scale
     cx, cy = (float(v) for v in info.principal_point)
     K = np.array([[f, 0.0, cx], [0.0, f, cy], [0.0, 0.0, 1.0]])
 
     R = _rotation(np.radians(12.0), np.radians(-6.0))
     # the car drives down the lane beside the camera's line of sight (off
     # axis, as in the reference clips), so the MSV rays have parallax
-    t0 = np.array([0.6, 0.45, DEPTH0_M])
+    t0 = np.array([0.6, 0.45, depth0_m])
     direction = np.array([0.05, 0.0, 1.0])
-    v = direction / np.linalg.norm(direction) * (SPEED_KMH / 3.6)
-    t_cam = t0[None, :] + v[None, :] * (np.arange(n_frames)[:, None] / FPS)
+    v = direction / np.linalg.norm(direction) * (speed_kmh / 3.6)
+    rate = fps / stride  # rendered frames per second
+    t_cam = t0[None, :] + v[None, :] * (np.arange(n_frames)[:, None] / rate)
 
     tex = _car_texture(rng)
     bg = _background(rng, height, width)
@@ -231,9 +287,24 @@ def render_clip(n_frames: int = 20, width: int = 1920, height: int = 1080,
     plate = license_plate_points("Chile", np.float64)
     pc = plate @ R + t_cam[0]
     q_img = (pc @ K.T)[:, :2] / pc[:, 2:3]
-    ann = Annotation(q=(q_img / NATIVE_SCALE).astype(np.float32), fname="synthetic.MOV",
+    ann = Annotation(q=(q_img / native_scale).astype(np.float32), fname=filename,
                      start_frame=0)
     dv = np.diff(t_cam, axis=0)
-    speed = float(np.linalg.norm(dv, axis=1).mean() * FPS * 3.6)
-    return SyntheticClip(reader=SyntheticVideoReader(grays, info), annotation=ann,
+    speed = float(np.linalg.norm(dv, axis=1).mean() * rate * 3.6)
+    return SyntheticClip(reader=SyntheticVideoReader(grays, info, rate), annotation=ann,
                          speed_kmh=speed, plane_to_image=plane_to_image)
+
+
+def render_burst() -> SyntheticClip:
+    """The full-size stills burst (``STILLS_N`` stills of ``STILLS_SIZE``,
+    ``STILLS_BURST``); its stills are ``.stills()``."""
+    w, h = STILLS_SIZE
+    return render_clip(n_frames=STILLS_N, width=w, height=h, seed=0, **STILLS_BURST)
+
+
+def render_lanes(lane0: SyntheticClip | None = None) -> list[SyntheticClip]:
+    """The 1920x1080 clips of ``LANE_FRAMES`` frames, one per ``BATCH_LANES``
+    entry; ``lane0``, where given, is the first, already rendered."""
+    return [lane0 if v == 0 and lane0 is not None else
+            render_clip(n_frames=LANE_FRAMES, width=1920, height=1080, seed=seed, speed_kmh=kmh)
+            for v, (seed, kmh) in enumerate(BATCH_LANES)]
