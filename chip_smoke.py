@@ -10,7 +10,7 @@ main paths (K1 also at its edge cases and, with points up to and past the
 image's edges, at every pyramid level of a 4032x3024 still; K2 and K3 with
 corners past every side, K2 also on a still; each beside its launch floor,
 the same call at size 1), then
-drives four paths on a 1920x1080, 20-frame synthetic clip with the default
+drives the paths below on a 1920x1080, 20-frame synthetic clip with the default
 widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 
 - ``ScanSpeedRunner.run`` with the default lanes LK engine (kernels K1 and
@@ -36,16 +36,32 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 - phase ``multivideo``: ``run_batch`` over three 1080p clips of 20 frames
   (``render_lanes``; lane 0 is the clip above), then the three single scan
   runner runs of the same clips: each lane and each single run against its
-  truth and the JAX CPU lane, lane 0's track history against its single
-  run's, the batch's launches against the single runs' sum, each MSV's
+  truth and the JAX CPU lane, lane 0's track history and launches against
+  its single run's, the batch's launches by lane, each MSV's
   iterations, and the batch's warm wall beside the single runs' summed
-  walls, whole and less the host MSV.
+  walls, whole and less the host MSV;
+- phase ``parallel`` (in-process shards on the one card, axis sizes 1 and
+  2): ``ba_schur_sharded`` against ``ba_schur`` at 20 cameras x 1024
+  tracks, ``windowed_ba`` at 4 windows x 16 cameras x 1024 tracks with
+  ``fix_rotations`` and ``pin_tracks=4`` against the same call on the CPU
+  in f64 and beside a Python loop of ``ba_schur`` over its windows, and
+  ``lk_forward_backward_sharded`` at N 1024 on the clip's first frame
+  pair, 2 shards bit-equal to 1, its K1 and K2 launches counted;
+- phase ``longvideo``: ``LongVideoRunner.run`` on the seed-0 clip rendered
+  to 48 frames (window 16, overlap 3, BA refinement): speed against the
+  truth and JAX's CPU run, residual, windows, BA windows accepted, frames
+  replenished, lanes promoted and refreshed, decode time and decode wait;
+  then a run cut at 40 frames with a checkpoint and resumed (without BA
+  refinement, as JAX's test) and a run whose second segment fails once and
+  is retried, each held to the uninterrupted run.
 
 It checks that each path went through its kernels (the counts are set to 0
 just before a path's run and read just after) and recovered the clip's
 speed, and prints each kernel's launches by shape with launches x (time -
-bound). Any failure exits non-zero; there is no CPU fallback. The last line
-is a JSON object with ``"ok": true``.
+bound). The ``kernels`` line gives K1's and K2's launches on the long-video
+run and each kernel's launches on every counted path. Any failure exits
+non-zero; there is no CPU fallback. The last line is a JSON object with
+``"ok": true``.
 
 Each kernel's bound is the larger of its bytes over the card's memory rate
 and its f32 operations over the card's f32 rate (H100 SXM published peaks,
@@ -86,6 +102,18 @@ JAX_CPU_SPEED_KMH = {"lanes": 39.9964228614167, "fast": 39.996056468425444,
 # lane or single run, is held to JAX's residual on its lane within this margin
 JAX_CPU_BATCH_RESIDUAL_PX = (0.06572684273123741, 1.3208546148318994, 0.9673360944970658)
 BATCH_RESIDUAL_VS_JAX_PX = 0.1
+# JAX's LongVideoRunner on the first LONG_FRAMES frames of the clip (window 16,
+# overlap 3, BA refinement; scripts/jax_reference_speeds.py longvideo)
+JAX_CPU_LONGVIDEO_KMH = 39.57521730613294
+JAX_CPU_LONGVIDEO_RESIDUAL_PX = 0.2090957446405065
+# phase longvideo: the run cut at LONG_CUT frames with a checkpoint (row
+# LONG_CUT - 1 is off the 16-row grid) and resumed, and the run whose second
+# segment fails once, against the uninterrupted run (JAX's test tolerances:
+# the boundary state crosses f32 -> f64 -> f32 at a resume)
+LONG_CUT = 40
+RESUME_TOL_M, RESUME_TOL_KMH = 2.5e-2, 0.3
+# phase parallel: the windowed BA's windows x cameras (tracks: BA_TRACKS)
+PAR_WINDOWS, PAR_CAMERAS = 4, 16
 SPEED_VS_TRUTH = 0.05
 SPEED_VS_JAX = 0.02
 MAX_RESIDUAL_PX = 1.0
@@ -755,14 +783,14 @@ def phase_driver(dev, clip):
           f"km/h, trajectory bit-equal to the driver's: {np.array_equal(sres.B, fres.B)}")
 
 
-def _ba_scene(nc, nt, dtype, dev):
+def _ba_scene(nc, nt, dtype, dev, seed=0):
     """The windowed BA problem: ``nc`` cameras on a 3.3 m line, ``nt`` points
     6-10 m away, 0.3 px of pixel noise, the structure and the camera track
-    perturbed (5 cm, 3 cm, 5 mrad). Made on the host from seed 0."""
+    perturbed (5 cm, 3 cm, 5 mrad). Made on the host from ``seed``."""
     from velocity_tpu_torch.geometry.projection import Intrinsics
     from velocity_tpu_torch.solvers.ba import BAProblem
 
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     f, cx, cy = 1993.9, 960.5, 540.5
     pts = np.concatenate([rng.uniform(-2, 2, (nt, 2)), rng.uniform(6, 10, (nt, 1))], 1)
     pos = np.stack([np.linspace(0, 3.3, nc), np.zeros(nc), np.zeros(nc)], 1)
@@ -985,8 +1013,13 @@ def phase_multivideo(dev, clip):
     each run's host MSV (the batch's MSV, the single runs' re-anchor), and
     each MSV's iterations and residual. Each run within the speed limits and
     within BATCH_RESIDUAL_VS_JAX_PX of JAX's residual on its lane; lane 0's
-    track history bit-equal to its single run's; the batch's launches the
-    sum of the single runs'."""
+    track history bit-equal to its single run's. The batch's launches are
+    counted lane by lane (each lane's frame-0 init and its segments) and
+    summed to the batch's count; lane 0, which draws from seed 0 as the
+    single runs do, launches what its single run launches. Lanes v > 0 draw
+    from seed v (JAX's run_batch draws lane v from PRNGKey(v)), so their
+    RANSAC hypotheses, and with them a few LK blocks, differ from their
+    single runs'."""
     from velocity_tpu_torch.config import PipelineConfig, SolverConfig
     from velocity_tpu_torch.pipeline.multivideo import run_batch
     from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
@@ -1000,7 +1033,29 @@ def phase_multivideo(dev, clip):
     runner = ScanSpeedRunner(cfg, device=dev)
     msv_batch, msv_single = [], []
 
+    from velocity_tpu_torch.pipeline import multivideo
+
+    per_lane = [dict.fromkeys(_counters(), 0) for _ in lanes]
+    inits = []
+
+    def counted(fn, lane_of):
+        def wrapper(*args, **kwargs):
+            before = _read_counts()[0]
+            out = fn(*args, **kwargs)
+            lane = per_lane[lane_of(args)]
+            for k, n in _read_counts()[0].items():
+                lane[k] += n - before[k]
+            return out
+        return wrapper
+
     undo = _recording_msv(msv_batch)
+    real = multivideo.scan_segment, multivideo._init_features
+    multivideo.scan_segment = counted(real[0], lambda a: a[9].initial_seed())
+    def init_lane(args):  # run_batch initialises the lanes in order
+        inits.append(args)
+        return len(inits) - 1
+
+    multivideo._init_features = counted(real[1], init_lane)
     try:
         _reset_counts()
         t = time.perf_counter()
@@ -1011,6 +1066,7 @@ def phase_multivideo(dev, clip):
         launches, _ = _read_counts()
     finally:
         undo()
+        multivideo.scan_segment, multivideo._init_features = real
     single, single_counts = [], []
     undo = _recording_msv(msv_single)
     try:
@@ -1024,14 +1080,15 @@ def phase_multivideo(dev, clip):
     wall_s = sum(r.timings["wall_s"] for r in single)
     msv_b = sum(r.timings["msv_s"] for r in res)
     msv_s = sum(r.timings["msv_s"] for r in single)
-    summed = {k: sum(c[k] for c in single_counts) for k in launches}
+    summed = {k: sum(c[k] for c in per_lane) for k in launches}
     cap = cfg.solver.max_iters_msv
     print(f"multivideo: run_batch of {len(lanes)} lanes x {N_FRAMES} frames warm wall "
           f"{wall_b:.3f} s, of it host MSV {msv_b:.3f} s, the rest {wall_b - msv_b:.3f} s; the "
           f"three single scan-runner runs {wall_s:.3f} s, of it re-anchor {msv_s:.3f} s, the "
           f"rest {wall_s - msv_s:.3f} s (in turns: batch, then singles); launches K1 "
-          f"{launches['lk_block']} K2 {launches['extract_slabs']}, the single runs' K1 "
-          f"{[c['lk_block'] for c in single_counts]} K2 "
+          f"{launches['lk_block']} K2 {launches['extract_slabs']}, by lane K1 "
+          f"{[c['lk_block'] for c in per_lane]} K2 {[c['extract_slabs'] for c in per_lane]}; "
+          f"the single runs' K1 {[c['lk_block'] for c in single_counts]} K2 "
           f"{[c['extract_slabs'] for c in single_counts]}")
     if len(msv_batch) != len(lanes) or len(msv_single) != len(lanes):
         raise AssertionError(f"multivideo: {len(msv_batch)} batch and {len(msv_single)} single "
@@ -1050,13 +1107,235 @@ def phase_multivideo(dev, clip):
                    jax_kmh, limit)
         _check_run(f"multivideo single run {v}", s, c, single_counts[v],
                    ("lk_block", "extract_slabs"), jax_kmh, limit)
-    if summed != launches:
-        raise AssertionError(f"multivideo: launches {launches}, the single runs' sum {summed}")
+    if summed != launches or per_lane[0] != single_counts[0]:
+        raise AssertionError(f"multivideo: launches {launches}, by lane {per_lane}, lane 0's "
+                             f"single run {single_counts[0]}")
     same = (np.array_equal(res[0].track_px, single[0].track_px, equal_nan=True)
             and np.array_equal(res[0].valid, single[0].valid))
     print(f"multivideo: lane 0's track history bit-equal to the single run's: {same}")
     if not same:
         raise AssertionError("multivideo: lane 0's tracks differ from the single scan runner's")
+
+
+def _rel(a, b) -> float:
+    """max |a - b| / max |b| of two tensors, on the CPU in f64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _par_mesh(dev, **sizes):
+    """An in-process mesh of ``sizes`` whose every shard runs on ``dev``."""
+    from velocity_tpu_torch.parallel import make_mesh
+
+    return make_mesh(sizes, devices=[dev] * int(np.prod(list(sizes.values()))))
+
+
+def _windowed_scene(dtype, dev):
+    """PAR_WINDOWS windows of ``_ba_scene`` (window w from seed w), stacked
+    as windowed_ba takes them, and their intrinsics."""
+    probs = [_ba_scene(PAR_CAMERAS, BA_TRACKS, dtype, dev, seed=w) for w in range(PAR_WINDOWS)]
+    return (tuple(torch.stack([getattr(p, f) for p in probs])
+                  for f in ("pixels", "mask", "points0", "cams0")), probs[0].intr)
+
+
+def phase_parallel(dev, clip):
+    """The sharded paths on the one card with the in-process back end, at
+    axis sizes 1 and 2: ba_schur_sharded against ba_schur at BA_CAMERAS x
+    BA_TRACKS (f64 to 1e-8 with equal iterations, f32 to BA_RTOL in the
+    scale gauge); windowed_ba at PAR_WINDOWS x PAR_CAMERAS x BA_TRACKS with
+    fix_rotations and pin_tracks=4 (the pinned plate lanes fix the gauge),
+    point axis 2 and window axis 2 against 1 (f64 to 1e-8, equal
+    iterations), each layout against the same call on the CPU in f64, and
+    its time beside a Python loop of ba_schur over the same windows;
+    lk_forward_backward_sharded at N 1024 on the clip's first frame pair in
+    its stage-2 and stage-3 forms, 2 shards against 1, bit-equal, its K1
+    and K2 launches counted. Returns the sharded LK's launches."""
+    from velocity_tpu_torch.config import BAConfig, PipelineConfig
+    from velocity_tpu_torch.ops.lk_lanes import lk_forward_backward_lanes
+    from velocity_tpu_torch.parallel import ba_schur_sharded, windowed_ba
+    from velocity_tpu_torch.parallel.track_shard import lk_forward_backward_sharded
+    from velocity_tpu_torch.pipeline.speedest import _init_features
+    from velocity_tpu_torch.solvers.schur import ba_schur
+
+    cfg = BAConfig(max_iters=10)
+    for dtype_name in ("float64", "float32"):
+        prob = _ba_scene(BA_CAMERAS, BA_TRACKS, getattr(torch, dtype_name), dev)
+        want = ba_schur(prob, cfg)
+        for shards in (1, 2):
+            got = ba_schur_sharded(prob, _par_mesh(dev, point=shards), "point", cfg)
+            gauge = float(want.cams[-1, 0:3].norm() / got.cams[-1, 0:3].norm())
+            cams = torch.cat([got.cams[:, 0:3] * gauge, got.cams[:, 3:6]], dim=1)
+            errs = (_rel(got.points * gauge, want.points), _rel(cams, want.cams))
+            rtol = BA_RTOL[dtype_name]
+            print(f"parallel: ba_schur_sharded {dtype_name} {BA_CAMERAS} x {BA_TRACKS}, "
+                  f"point axis {shards}: {got.iterations} iterations (ba_schur "
+                  f"{want.iterations}), points {errs[0]:.2e} cams {errs[1]:.2e} from ba_schur "
+                  f"on the card (limit {rtol:g}) at scale gauge 1{gauge - 1:+.2e}")
+            if max(errs) > rtol or abs(gauge - 1) > 10 * rtol or (
+                    dtype_name == "float64" and got.iterations != want.iterations):
+                raise AssertionError(f"ba_schur_sharded {dtype_name} x{shards}: {errs}, gauge "
+                                     f"{gauge}, {got.iterations} vs {want.iterations} iterations")
+
+    kw = dict(config=cfg, fix_rotations=True, pin_tracks=4)
+    (cpu_arrays, cpu_intr) = _windowed_scene(torch.float64, "cpu")
+    t0 = time.perf_counter()
+    ref = windowed_ba(*cpu_arrays, cpu_intr, _par_mesh("cpu", window=1, point=1), **kw)
+    print(f"parallel: windowed_ba CPU f64 reference {PAR_WINDOWS} x {PAR_CAMERAS} x {BA_TRACKS}: "
+          f"{time.perf_counter() - t0:.2f} s, iterations {ref[2].tolist()}")
+    layouts = ({"window": 1, "point": 1}, {"window": 1, "point": 2}, {"window": 2, "point": 1})
+    for dtype_name in ("float64", "float32"):
+        arrays, intr = _windowed_scene(getattr(torch, dtype_name), dev)
+        rtol = BA_RTOL[dtype_name]
+        base = None
+        for layout in layouts:
+            got = windowed_ba(*arrays, intr, _par_mesh(dev, **layout), **kw)
+            errs = (_rel(got[0], ref[0]), _rel(got[1], ref[1]))
+            vs_base = ("" if base is None else
+                       f"; against window 1 x point 1 on the card points "
+                       f"{_rel(got[0], base[0]):.2e} cams {_rel(got[1], base[1]):.2e}")
+            print(f"parallel: windowed_ba {dtype_name} window {layout['window']} x point "
+                  f"{layout['point']}: iterations {got[2].tolist()}, against the CPU f64 call "
+                  f"points {errs[0]:.2e} cams {errs[1]:.2e} (limit {rtol:g}){vs_base}")
+            if max(errs) > rtol:
+                raise AssertionError(f"windowed_ba {dtype_name} {layout}: {errs} above {rtol}")
+            if dtype_name == "float64" and not torch.equal(got[2].cpu(), ref[2]):
+                raise AssertionError(f"windowed_ba {layout}: iterations {got[2].tolist()}, "
+                                     f"CPU {ref[2].tolist()}")
+            if base is not None and dtype_name == "float64" and max(
+                    _rel(got[0], base[0]), _rel(got[1], base[1])) > BA_RTOL["float64"]:
+                raise AssertionError(f"windowed_ba {layout} differs from window 1 x point 1")
+            base = got if base is None else base
+        mesh = _par_mesh(dev, window=1, point=1)
+        batched_ms = _events_ms(lambda: windowed_ba(*arrays, intr, mesh, **kw))
+        probs = [_ba_scene(PAR_CAMERAS, BA_TRACKS, getattr(torch, dtype_name), dev, seed=w)
+                 for w in range(PAR_WINDOWS)]
+        loop_iters = [ba_schur(p, cfg, fix_rotations=True).iterations for p in probs]
+        loop_ms = _events_ms(lambda: [ba_schur(p, cfg, fix_rotations=True) for p in probs])
+        n_it = int(base[2].max())
+        print(f"parallel: windowed_ba {dtype_name} batched, window 1 x point 1: "
+              f"{batched_ms:.3f} ms = {batched_ms / n_it:.3f} ms per batched iteration "
+              f"({n_it}); a Python loop of ba_schur (fix_rotations) over the same windows "
+              f"{loop_ms:.3f} ms = {loop_ms / sum(loop_iters):.3f} ms per window iteration "
+              f"({loop_iters}); batched / loop {batched_ms / loop_ms:.3f}")
+
+    pcfg = PipelineConfig()
+    frames = torch.as_tensor(clip.reader.grays[:2]).to(dev)
+    pts = torch.as_tensor(_init_features(pcfg, frames[0], clip.annotation.q * pcfg.native_scale)[0],
+                          device=dev)
+    im0, im1 = frames[0].float(), frames[1].float()
+    M = torch.as_tensor(clip.motion_affine(0, 1), dtype=torch.float32, device=dev)
+    lk1, lk3 = pcfg.tracker.lk_coarse, pcfg.tracker.lk_fine
+    forms = {"stage 2": dict(fb_threshold=1.0, win=lk1.window, max_level=lk1.max_level,
+                             iters=lk1.max_iters, eps=lk1.eps),
+             "stage 3": dict(fb_threshold=0.3, warp_dst=M, win=lk3.window,
+                             max_level=lk3.max_level, iters=lk3.max_iters, eps=lk3.eps)}
+    total = {}
+    for form, lk_kw in forms.items():
+        _reset_counts()
+        single = lk_forward_backward_lanes(im0, im1, pts, **lk_kw)
+        one, _ = _read_counts()
+        _reset_counts()
+        got = lk_forward_backward_sharded(im0, im1, pts, _par_mesh(dev, feature=2), "feature",
+                                          **lk_kw)
+        torch.cuda.synchronize()
+        launches, _ = _read_counts()
+        same = torch.equal(got.points, single.points) and torch.equal(got.status, single.status)
+        print(f"parallel: lk_forward_backward_sharded {form}, N {pts.shape[0]}, 2 shards: "
+              f"bit-equal to the single call: {same}, {int(got.status.sum())} tracked; "
+              f"launches K1 {launches['lk_block']} K2 {launches['extract_slabs']} (the single "
+              f"call K1 {one['lk_block']} K2 {one['extract_slabs']})")
+        if not same:
+            raise AssertionError(f"sharded LK ({form}) differs from the single call")
+        if launches["lk_block"] <= 0 or launches["extract_slabs"] <= 0:
+            raise AssertionError(f"sharded LK ({form}) did not launch K1 and K2: {launches}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    return total
+
+
+def phase_longvideo(dev):
+    """LongVideoRunner on the seed-0 clip rendered to LONG_FRAMES frames
+    (1920x1080, default widths, f32 solver, lanes, msv_frame 5;
+    window 16, overlap 3, BA refinement): a cold run, then the warm run
+    with the counts, its speed against the truth and JAX's CPU value, its
+    residual, windows, BA windows accepted and their iterations, frames
+    replenished, lanes promoted and refreshed, decode time and decode wait;
+    then, without BA refinement, a run cut at LONG_CUT frames with a
+    checkpoint and resumed against the uninterrupted run, and a run whose
+    second segment fails once against the warm run."""
+    from velocity_tpu_torch.config import PipelineConfig, SolverConfig
+    from velocity_tpu_torch.pipeline import longvideo as lv
+    from velocity_tpu_torch.testing.synthetic_clip import LONG_FRAMES, LONG_RUN, render_clip
+
+    t0 = time.perf_counter()
+    clip = render_clip(n_frames=LONG_FRAMES, width=1920, height=1080, seed=0)
+    print(f"longvideo: {LONG_FRAMES} x 1080x1920 rendered in {time.perf_counter() - t0:.1f} s, "
+          f"true speed {clip.speed_kmh:.3f} km/h; run {LONG_RUN}")
+    runner = lv.LongVideoRunner(PipelineConfig(solver=SolverConfig(dtype="float32")),
+                                device=dev)
+    kw = dict(annotation=clip.annotation, verbose=False, **LONG_RUN)
+    t0 = time.perf_counter()
+    runner.run(clip.reader, **kw)
+    print(f"longvideo cold run: {time.perf_counter() - t0:.2f} s")
+    _reset_counts()
+    res = runner.run(clip.reader, **kw)
+    launches, by_shape = _read_counts()
+    tm = res.timings
+    live = res.S[:, 2].astype(int)
+    print(f"longvideo warm run: wall {tm['wall_s']:.3f} s, {LONG_FRAMES / tm['wall_s']:.3f} "
+          f"frames/s, decode thread {tm['decode_s']:.3f} s, tracker waited on decode "
+          f"{tm['decode_wait_s']:.3f} s; speed {res.speed_kmh:.4f} km/h (true "
+          f"{clip.speed_kmh:.4f}, JAX CPU {JAX_CPU_LONGVIDEO_KMH}), residual "
+          f"{res.residual_px:.4f} px (JAX CPU {JAX_CPU_LONGVIDEO_RESIDUAL_PX}); windows "
+          f"{tm['windows']}, BA windows accepted {tm['ba_accepted']} of {tm['ba_windows']} "
+          f"(iterations {tm['ba_iterations']}); frames replenished "
+          f"{tm['replenished_frames']} ({tm['replenished_lanes']} lanes), lanes promoted "
+          f"{tm['promoted']}, refreshed {tm['refreshed']}; live lanes min {live.min()} "
+          f"(replenishment below {runner.config.tracker.max_features // 2}), per row "
+          f"{live.tolist()}; launches K1 {launches['lk_block']} K2 "
+          f"{launches['extract_slabs']} {by_shape['lk_block']} {by_shape['extract_slabs']}")
+    limit = (MAX_RESIDUAL_PX if JAX_CPU_LONGVIDEO_RESIDUAL_PX <= MAX_RESIDUAL_PX
+             else JAX_CPU_LONGVIDEO_RESIDUAL_PX + BATCH_RESIDUAL_VS_JAX_PX)
+    _check_run("longvideo", res, clip, launches, ("lk_block", "extract_slabs"),
+               JAX_CPU_LONGVIDEO_KMH, limit)
+
+    def against(label, other, want):
+        err = float(np.abs(other.B[:, 0:3] - want.B[:, 0:3]).max())
+        dkmh = other.speed_kmh - want.speed_kmh
+        print(f"longvideo {label}: speed {other.speed_kmh:.4f} km/h, max trajectory "
+              f"difference {err:.3e} m (limit {RESUME_TOL_M}), speed {dkmh:+.3e} km/h (limit "
+              f"{RESUME_TOL_KMH}), retries {other.timings['retries']}")
+        if not (err <= RESUME_TOL_M and abs(dkmh) < RESUME_TOL_KMH):
+            raise AssertionError(f"longvideo {label}: {err} m, {dkmh} km/h")
+
+    # resume, without BA refinement as JAX's test: a resumed run's refinement
+    # windows are its segments, which the cut splits
+    ck = ROOT / "build" / "longvideo_state.npz"
+    ck.parent.mkdir(parents=True, exist_ok=True)
+    ck.unlink(missing_ok=True)
+    no_ba = dict(kw, ba_refine=False)
+    whole = runner.run(clip.reader, **no_ba)
+    runner.run(clip.reader, n_frames=LONG_CUT, checkpoint=ck, **no_ba)
+    against(f"without BA refinement, resumed at row {LONG_CUT - 1}",
+            runner.run(clip.reader, checkpoint=ck, resume=True, **no_ba), whole)
+    ck.unlink()
+
+    real, calls = lv.scan_segment, []
+
+    def flaky(*args, **kwargs):
+        calls.append(len(args[0]))
+        if len(calls) == 2:
+            raise RuntimeError("injected transient device failure")
+        return real(*args, **kwargs)
+
+    lv.scan_segment = flaky
+    try:
+        retried = runner.run(clip.reader, **kw)
+    finally:
+        lv.scan_segment = real
+    against(f"with its second segment failed once (segment rows {calls})", retried, res)
+    if retried.timings["retries"] != 1:
+        raise AssertionError(f"longvideo: {retried.timings['retries']} retries, not 1")
+    return launches
 
 
 def main() -> int:
@@ -1086,26 +1365,35 @@ def main() -> int:
     phase_ba_solvers(dev)
     phase_stills(dev)
     phase_multivideo(dev, clip)
+    sharded_lk = phase_parallel(dev, clip)
+    longvideo = phase_longvideo(dev)
 
     k1_main = next(r for r in k1_rows if r.get("win") == 51 and r.get("cubic") and r.get("it0") == 0)
     k2_main = next(r for r in k2_rows if r["size"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
+    paths = {"lanes": lanes, "fast": fast, "sharded_lk": sharded_lk, "longvideo": longvideo}
+
+    def by_path(name):
+        return {path: counts[name] for path, counts in paths.items()}
+
+    # launches: this slice's main path (the long-video runner) for K1 and
+    # K2; K3 runs only on the fast path
     kernels = [
         {"name": "lk_block", "route": "cuda", "source": "velocity_tpu_torch/csrc/lk_block.cu",
          "replaces": "velocity_tpu/ops/lk_block_pallas.py:207",
-         "launches": lanes["lk_block"],
+         "launches": longvideo["lk_block"], "launches_by_path": by_path("lk_block"),
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
          **{k: k1_main[k] for k in keys}, "library_ms": None},
         {"name": "extract_slabs", "route": "cuda", "source": "velocity_tpu_torch/csrc/slab.cu",
          "replaces": "velocity_tpu/ops/slab_pallas.py:107",
-         "launches": lanes["extract_slabs"],
+         "launches": longvideo["extract_slabs"], "launches_by_path": by_path("extract_slabs"),
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          **{k: k2_main[k] for k in keys}, "library_ms": k2_main["library_ms"]},
         {"name": "extract_patches", "route": "cuda",
          "source": "velocity_tpu_torch/csrc/patch.cu",
          "replaces": "velocity_tpu/ops/patch_pallas.py:62",
-         "launches": fast["extract_patches"],
+         "launches": fast["extract_patches"], "launches_by_path": by_path("extract_patches"),
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
          **{k: k3_main[k] for k in keys}, "library_ms": k3_main["library_ms"]},
     ]

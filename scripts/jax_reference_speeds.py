@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Speeds the JAX package recovers on the port's synthetic clip, on the CPU.
 
-    python3 scripts/jax_reference_speeds.py [scan_ba] [driver] [scan] [stills] [batch]
+    python3 scripts/jax_reference_speeds.py [scan_ba] [driver] [scan] [stills] [batch] [longvideo]
 
 Renders the clip ``chip_smoke.py`` drives (seed 0, 1920x1080, 20 frames, 40
 km/h) and runs the JAX package on it with the f32 solver and the default
@@ -13,7 +13,9 @@ smoke run's stills burst (``render_burst`` of
 ``velocity_tpu_torch/testing/synthetic_clip.py``; its ``"stills"`` entry)
 and ``batch`` is ``run_batch`` over the smoke run's three clips
 (``render_lanes``; its ``"batch"`` entry, one speed and residual per
-lane).
+lane). ``longvideo`` is ``LongVideoRunner.run`` (window 16, overlap 3, BA
+refinement) on the first ``LONG_FRAMES`` frames of the same clip (its
+``"longvideo"`` entry and ``JAX_CPU_LONGVIDEO_RESIDUAL_PX``).
 Prints one JSON line per run. This is the one script outside the tests that
 imports both packages: the scenes come from the port's fixture, the speeds
 from JAX. Minutes of CPU per run; ``stills`` renders and tracks 12 MP frames
@@ -38,6 +40,7 @@ import numpy as np  # noqa: E402
 
 import velocity_tpu.ingest.native_loader as native_loader  # noqa: E402
 import velocity_tpu.ingest.video as video  # noqa: E402
+import velocity_tpu.pipeline.longvideo as longvideo  # noqa: E402
 import velocity_tpu.pipeline.multivideo as multivideo  # noqa: E402
 import velocity_tpu.pipeline.speedest as speedest  # noqa: E402
 import velocity_tpu.pipeline.stills as stills  # noqa: E402
@@ -46,7 +49,7 @@ from velocity_tpu.camera.database import camera_info  # noqa: E402
 from velocity_tpu.config import PipelineConfig, SolverConfig  # noqa: E402
 from velocity_tpu.pipeline.scan import ScanSpeedRunner  # noqa: E402
 from velocity_tpu_torch.testing.synthetic_clip import (  # noqa: E402
-    STILLS_BURST, render_burst, render_clip, render_lanes)
+    LONG_FRAMES, LONG_RUN, STILLS_BURST, render_burst, render_clip, render_lanes)
 
 N_FRAMES, WIDTH, HEIGHT = 20, 1920, 1080
 
@@ -126,6 +129,14 @@ def _run_batch(solver):
             for v, (r, c) in enumerate(zip(res, lanes))]
 
 
+def _run_longvideo(solver):
+    clip = render_clip(n_frames=LONG_FRAMES, width=WIDTH, height=HEIGHT, seed=0)
+    video.VideoReader = lambda *a, **k: _Reader(clip)
+    res = longvideo.LongVideoRunner(PipelineConfig(solver=solver)).run(
+        "synthetic.MOV", annotation=_jax_annotation(clip), verbose=False, **LONG_RUN)
+    return [dict(_result("longvideo", res, clip.speed_kmh), frames=LONG_FRAMES, **LONG_RUN)]
+
+
 def main(which) -> int:
     native_loader.NativeVideoStream = _no_native_loader
     solver = SolverConfig(dtype="float32")
@@ -135,11 +146,13 @@ def main(which) -> int:
         "driver": lambda: speedest.SpeedEstimator(PipelineConfig(solver=solver)),
     }
     clip = None
-    for name in which or [*on_clip, "stills", "batch"]:
+    for name in which or [*on_clip, "stills", "batch", "longvideo"]:
         if name == "stills":
             lines = _run_stills(solver)
         elif name == "batch":
             lines = _run_batch(solver)
+        elif name == "longvideo":
+            lines = _run_longvideo(solver)
         else:
             if clip is None:
                 clip = render_clip(n_frames=N_FRAMES, width=WIDTH, height=HEIGHT, seed=0)

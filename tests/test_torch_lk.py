@@ -100,3 +100,34 @@ def test_ransac_matches_jax_with_injected_noise():
     np.testing.assert_array_equal(got.inliers.numpy(), np.asarray(want.inliers))
     np.testing.assert_allclose(got.M.numpy(), np.asarray(want.M), rtol=0, atol=1e-4)
     assert int(got.n_inliers) == int(want.n_inliers)
+
+
+def test_ransac_draws_its_own_noise_from_the_generator():
+    """Without injected noise RANSAC draws standard Gumbel noise from its
+    generator (finite, mean 0.5772 and std 1.2825 within 2%, the same draws
+    from the same seed), so its hypotheses are random triples of valid
+    lanes: on points with 40% outliers it finds the outliers, and its model
+    maps every inlier within the threshold, whatever the seed."""
+    from velocity_tpu_torch.ops.ransac import gumbel_noise
+
+    g = gumbel_noise(256, 1024, torch.Generator().manual_seed(0))
+    assert torch.isfinite(g).all()
+    assert abs(float(g.mean()) - 0.5772) < 0.02 and abs(float(g.std()) - 1.2825) < 0.03
+    assert torch.equal(g, gumbel_noise(256, 1024, torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(8)
+    N = 184  # a capacity at which noise of NaNs made every hypothesis fail
+    src = rng.uniform(0, 400, (N, 2)).astype(np.float32)
+    A = np.float32([[0.9, 0.01, 20.0], [-0.01, 0.9, 12.0]])
+    dst = src @ A[:, :2].T + A[:, 2]
+    out = rng.random(N) < 0.4
+    dst[out] += rng.uniform(20, 60, (int(out.sum()), 2)).astype(np.float32)
+    mask = np.ones(N, bool)
+    mask[100:] = False  # dead lanes: never part of a hypothesis
+    for seed in range(3):
+        r = estimate_affine_ransac(torch.as_tensor(src), torch.as_tensor(dst),
+                                   mask=torch.as_tensor(mask), trials=64, threshold=3.0,
+                                   generator=torch.Generator().manual_seed(seed))
+        np.testing.assert_array_equal(r.inliers.numpy(), mask & ~out)
+        M = r.M.numpy()
+        inl = mask & ~out
+        assert (np.linalg.norm(src[inl] @ M[:, :2].T + M[:, 2] - dst[inl], axis=1) <= 3.0).all()

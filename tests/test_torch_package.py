@@ -33,7 +33,15 @@ MODULES = [
     "velocity_tpu_torch.ops.slab_pallas",
     "velocity_tpu_torch.ops.warp",
     "velocity_tpu_torch.ops.window",
+    "velocity_tpu_torch.parallel",
+    "velocity_tpu_torch.parallel.ba_dist",
+    "velocity_tpu_torch.parallel.checkpoint",
+    "velocity_tpu_torch.parallel.launch",
+    "velocity_tpu_torch.parallel.mesh",
+    "velocity_tpu_torch.parallel.track_shard",
+    "velocity_tpu_torch.parallel.windows",
     "velocity_tpu_torch.pipeline.anchor",
+    "velocity_tpu_torch.pipeline.longvideo",
     "velocity_tpu_torch.pipeline.multivideo",
     "velocity_tpu_torch.pipeline.scan",
     "velocity_tpu_torch.pipeline.speedest",
@@ -142,12 +150,33 @@ def test_stills_and_batch_refuse_cuda_without_a_card(entry):
 
 
 def test_unported_options_raise():
-    """Options whose code is not ported yet raise, naming the ROADMAP item."""
+    """No option is left unported: ``shard_features=2`` with the lanes
+    engine selects the feature-sharded forward-backward LK (a hook over a
+    two-shard ``feature`` mesh on the points' device), where it used to
+    raise; without sharding the plain lanes forward-backward stays."""
     from velocity_tpu_torch.config import TrackerConfig
-    from velocity_tpu_torch.pipeline.tracker import _check_backend
+    from velocity_tpu_torch.ops import lk_lanes
+    from velocity_tpu_torch.parallel import track_shard
+    from velocity_tpu_torch.pipeline import tracker
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _check_backend(TrackerConfig(shard_features=2))
+    seen = []
+
+    def recording(src, dst, pts, mesh, axis, **kw):
+        seen.append((mesh.shape, [mesh.device(feature=s) for s in range(2)], axis, sorted(kw)))
+        return "sharded"
+
+    real = track_shard.lk_forward_backward_sharded
+    track_shard.lk_forward_backward_sharded = recording
+    try:
+        pyr, fb = tracker._lk_impls(TrackerConfig(shard_features=2))
+        out = fb("src", "dst", torch.zeros(4, 2), src_pyr="a", dst_pyr="b", win=15)
+    finally:
+        track_shard.lk_forward_backward_sharded = real
+    cpu = torch.device("cpu")
+    assert pyr is lk_lanes.lk_pyramidal_lanes
+    assert out == "sharded" and seen == [({"feature": 2}, [cpu, cpu], "feature", ["win"])]
+    assert tracker._lk_impls(TrackerConfig(shard_features=1))[1] is \
+        lk_lanes.lk_forward_backward_lanes
 
 
 def test_lk_backends_select_their_engine():

@@ -3,13 +3,20 @@
 Speed estimation runs end to end on an NVIDIA Hopper GPU, as a batch over a
 clip (``pipeline.scan.ScanSpeedRunner``), one frame at a time with the
 feature-match rescue (``SpeedEstimator``), over a stills burst with EXIF
-timing and GPS georegistration (``pipeline.stills.StillsSpeedEstimator``)
-or over several clips at once (``pipeline.multivideo.run_batch``), with any
-of the three LK engines (``TrackerConfig(lk_backend=...)``) and with the MSV
-or the bundle-adjustment re-anchor (``PipelineConfig(anchor=...)``; ``solvers.schur.ba_schur``,
-``solvers.ba``). Plain tensor code is PyTorch; the three TPU kernels of
-those paths are CUDA C++ under ``csrc/`` (built with nvcc for sm_90a at
-first use, loaded with ctypes, see ``cuda_build``):
+timing and GPS georegistration (``pipeline.stills.StillsSpeedEstimator``),
+over several clips at once (``pipeline.multivideo.run_batch``) or over a
+whole video in windows with replenishment, checkpoints, resume, segment
+retry and windowed BA refinement (``pipeline.longvideo.LongVideoRunner``),
+with any of the three LK engines (``TrackerConfig(lk_backend=...)``) and
+with the MSV or the bundle-adjustment re-anchor
+(``PipelineConfig(anchor=...)``; ``solvers.schur.ba_schur``,
+``solvers.ba``). ``parallel/`` holds the sharded paths: point-sharded and
+windowed Schur BA, feature-sharded LK (``TrackerConfig(shard_features=n)``),
+meshes with an in-process and a ``torch.distributed`` back end, the
+multi-process launch and the window checkpoints. Plain tensor code is
+PyTorch; the three TPU kernels of those paths are CUDA C++ under ``csrc/``
+(built with nvcc for sm_90a at first use, loaded with ctypes, see
+``cuda_build``):
 
 - K2, slab extraction (``ops/slab_pallas.py``), replacing
   ``velocity_tpu/ops/slab_pallas.py:extract_slabs_dma``;

@@ -53,7 +53,7 @@ def gumbel_noise(trials: int, n: int, generator: torch.Generator | None = None,
     """(trials, n) standard Gumbel f32 noise from ``generator``."""
     u = torch.rand((trials, n), generator=generator, dtype=torch.float32, device=device)
     tiny = torch.finfo(torch.float32).tiny
-    return -torch.log(-torch.log(u.clamp_min(tiny)).clamp_min(tiny))
+    return -torch.log((-torch.log(u.clamp_min(tiny))).clamp_min(tiny))
 
 
 def estimate_affine_ransac(

@@ -15,6 +15,7 @@ environment switches and packed fetches do not carry over.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -34,18 +35,22 @@ def scan_segment(frames, pyr0, spyr0, pts0, vg0, vp0, t0, p3, intr, generator,
                  cfg, solver_cfg, solver_dtype):
     """Track + solve through ``frames`` (the successors of the start frame,
     uint8 (k, H, W) on the device) from the start frame's pyramids and
-    state; RANSAC draws from ``generator`` in frame order.
+    state; RANSAC draws from ``generator`` in frame order, or, where
+    ``generator`` is a list of one generator per frame, frame k's from
+    ``generator[k]`` (so a frame's draws need not depend on where its
+    segment starts).
 
     Returns (carry, outs): carry = (pyr, spyr, pts, vg, vp, t) of the last
     frame, ready to start the next segment; outs = (pts, vg, vp, t, res,
     pproj, n2), each stacked over the k frames, on the device.
     """
+    gens = generator if isinstance(generator, list) else [generator] * len(frames)
     carry = (pyr0, spyr0, pts0, vg0, vp0, t0)
     outs = []
-    for im in frames:
+    for im, gen in zip(frames, gens, strict=True):
         pyr, spyr, pts, vg, vp, t_prev = carry
         (pyr, spyr, pts, vg, vp, t, res, pproj, n2, _T23) = fused_frame_step_pyr(
-            pyr, spyr, im, pts, vg, vp, p3, intr, generator, cfg, solver_cfg, solver_dtype,
+            pyr, spyr, im, pts, vg, vp, p3, intr, gen, cfg, solver_cfg, solver_dtype,
             t_prev)
         carry = (pyr, spyr, pts, vg, vp, t.to(t_prev.dtype))
         outs.append((pts, vg, vp, t, res, pproj, n2))
@@ -113,6 +118,84 @@ def _decode(reader, start: int, n: int, step: int, pin: bool):
     times = np.array([fr.time_s for fr in frames], np.float64)
     indices = np.array([fr.index for fr in frames], np.float64)
     return stack, times, indices
+
+
+class FrameStream:
+    """Decodes ``n`` frames of ``reader`` from ``start`` (every ``step``-th)
+    on a thread, into uint8 host buffers (pinned where ``device`` is a
+    card); ``wait(i)`` blocks until frame i is decoded and returns it on
+    ``device`` through an asynchronous copy. ``grays[i]`` (numpy views of
+    the buffers), ``times`` and ``indices`` stay on the host, where the
+    boundary work and the retry of a failed segment read them.
+
+    ``decode_s`` is the thread's time in the reader and the buffer copies;
+    ``wait_s`` the time callers of ``wait`` spent blocked on decode. Stop
+    the thread with ``join`` (which raises what it raised) or ``close``.
+    """
+
+    def __init__(self, reader, start: int, n: int, step: int, device):
+        self.grays = [None] * n
+        self.times = np.zeros(n)
+        self.indices = np.zeros(n, np.int64)
+        self.decode_s = 0.0
+        self.wait_s = 0.0
+        self._device = torch.device(device)
+        self._host = [None] * n
+        self._decoded = 0
+        self._ended = False
+        self._err = None
+        self._stop = threading.Event()
+        self._cv = threading.Condition()
+        self._thread = threading.Thread(target=self._decode, args=(reader, start, n, step),
+                                        daemon=True)
+        self._thread.start()
+
+    def _decode(self, reader, start, n, step):
+        pin = self._device.type == "cuda"
+        try:
+            t0 = time.perf_counter()
+            for j, fr in enumerate(reader.frames(start=start, count=n, step=step)):
+                if j >= n or self._stop.is_set():
+                    break
+                buf = torch.empty(fr.gray.shape, dtype=torch.uint8, pin_memory=pin)
+                buf.numpy()[...] = fr.gray
+                with self._cv:
+                    self._host[j] = buf
+                    self.grays[j] = buf.numpy()
+                    self.times[j] = fr.time_s
+                    self.indices[j] = fr.index
+                    self._decoded = j + 1
+                    self.decode_s = time.perf_counter() - t0
+                    self._cv.notify_all()
+        except Exception as e:  # raised to the caller by wait() and join()
+            self._err = e
+        finally:
+            with self._cv:
+                self._ended = True
+                self._cv.notify_all()
+
+    def wait(self, i: int):
+        """Frame i, uint8 (H, W), on the device."""
+        t0 = time.perf_counter()
+        with self._cv:
+            while self._decoded <= i and not self._ended:
+                self._cv.wait()
+        self.wait_s += time.perf_counter() - t0
+        if self._err is not None:
+            raise self._err
+        if self._host[i] is None:
+            raise RuntimeError(f"decode ended before frame {i}")
+        return self._host[i].to(self._device, non_blocking=True)
+
+    def join(self):
+        self._thread.join()
+        if self._err is not None:
+            raise self._err
+
+    def close(self):
+        """Stop decoding (after the frame in hand) and wait for the thread."""
+        self._stop.set()
+        self._thread.join()
 
 
 class ScanSpeedRunner:

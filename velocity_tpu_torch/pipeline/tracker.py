@@ -14,7 +14,9 @@ previous frame's pyramids at every call.
 ``TrackerConfig.lk_backend`` picks the LK engine: "lanes" (the default,
 ``ops/lk_lanes.py``, on the carried pyramids), "fast" (``ops/lk_fast.py``)
 or any other value for the gather engine (``ops/lk.py``); the last two
-rebuild their pyramids inside each call, as in JAX.
+rebuild their pyramids inside each call, as in JAX. With "lanes" and
+``shard_features > 1`` the forward-backward stages split their lanes over
+that many shards (``_sharded_fb``).
 """
 
 from __future__ import annotations
@@ -31,20 +33,31 @@ from velocity_tpu_torch.ops.pyramid import build_pyramid, resize_nearest
 from velocity_tpu_torch.ops.ransac import estimate_affine_ransac
 
 
-def _check_backend(cfg: TrackerConfig) -> None:
-    if cfg.lk_backend == "lanes" and cfg.shard_features > 1:
-        raise NotImplementedError(
-            "shard_features > 1: feature-axis sharding is ROADMAP item 15")
-
-
 def _lk_impls(cfg: TrackerConfig):
     """(pyramidal LK, forward-backward LK) of the configured backend."""
-    _check_backend(cfg)
     if cfg.lk_backend == "lanes":
+        if cfg.shard_features > 1:
+            return lk_pyramidal_lanes, _sharded_fb(cfg)
         return lk_pyramidal_lanes, lk_forward_backward_lanes
     if cfg.lk_backend == "fast":
         return lk_pyramidal_fast, lk_forward_backward_fast
     return lk_pyramidal, lk_forward_backward
+
+
+def _sharded_fb(cfg: TrackerConfig):
+    """Forward-backward LK with the lane axis sharded over a ``feature``
+    mesh of ``cfg.shard_features`` shards on the device of the points
+    (``parallel/track_shard.py``). The prebuilt-pyramid kwargs are dropped:
+    each shard rebuilds its pyramids."""
+    from velocity_tpu_torch.parallel.mesh import make_mesh
+    from velocity_tpu_torch.parallel.track_shard import lk_forward_backward_sharded
+
+    def fb(src_img, dst_img, pts_src, *, src_pyr=None, dst_pyr=None, **kw):
+        n = cfg.shard_features
+        mesh = make_mesh({"feature": n}, devices=[pts_src.device] * n)
+        return lk_forward_backward_sharded(src_img, dst_img, pts_src, mesh, "feature", **kw)
+
+    return fb
 
 
 def _pyr_kw(cfg: TrackerConfig, src_pyr, dst_pyr):

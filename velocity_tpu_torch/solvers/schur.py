@@ -13,6 +13,12 @@ The function split is the one a point-sharded solve needs: the point axis
 summed over them before ``schur_assemble_solve``, the small camera solve is
 replicated, and ``schur_backsub`` is local to a shard. Cost per iteration:
 O(nc*nt) small-block math + the O((6 nc)^3) solve.
+
+Every block function also takes a leading batch of independent windows
+(``parallel/windows.py:windowed_ba``): points (..., nt, 3), cameras
+(..., nc, 6), observations (..., nc, nt); the einsums carry the batch
+dimensions and a batched camera system is solved window by window in one
+call (CG: one window after another).
 """
 
 from __future__ import annotations
@@ -49,12 +55,12 @@ def compute_blocks(
     initial values). The damping keeps the reduced system non-singular and
     the rpy deltas exactly zero.
     """
-    nc = cams.shape[0]
+    nc = cams.shape[-2]
     inv_f = 1.0 / intr.fx
 
-    C = rpy_to_matrix(cams[:, 3:6])  # (nc, 3, 3)
-    dC = rpy_to_matrix_jacobian(cams[:, 3:6])  # (nc, 3, 3, 3) [i, j, param]
-    pc = torch.einsum("tm,cmk->ctk", points, C) + cams[:, None, 0:3]  # (nc, nt, 3)
+    C = rpy_to_matrix(cams[..., 3:6])  # (nc, 3, 3)
+    dC = rpy_to_matrix_jacobian(cams[..., 3:6])  # (nc, 3, 3, 3) [i, j, param]
+    pc = torch.einsum("...tm,...cmk->...ctk", points, C) + cams[..., :, None, 0:3]  # (nc, nt, 3)
 
     X, Y, Z = pc[..., 0], pc[..., 1], pc[..., 2]
     iz = 1.0 / Z
@@ -77,11 +83,11 @@ def compute_blocks(
     L = torch.where(m[..., None], L, 0.0)
 
     # A = L @ C^T  (d pc_k / d pw_m = C[m, k])
-    A = torch.einsum("ctik,cmk->ctim", L, C)  # (nc, nt, 2, 3)
+    A = torch.einsum("...ctik,...cmk->...ctim", L, C)  # (nc, nt, 2, 3)
 
     # B: position part = L; rpy part = L @ (pw @ dC)
-    dpc_drpy = torch.einsum("tm,cmkp->ctkp", points, dC)  # (nc, nt, 3, 3 params)
-    B_rpy = torch.einsum("ctik,ctkp->ctip", L, dpc_drpy)  # (nc, nt, 2, 3)
+    dpc_drpy = torch.einsum("...tm,...cmkp->...ctkp", points, dC)  # (nc, nt, 3, 3 params)
+    B_rpy = torch.einsum("...ctik,...ctkp->...ctip", L, dpc_drpy)  # (nc, nt, 2, 3)
     if fix_rotations:
         B_rpy = torch.zeros_like(B_rpy)
     B = torch.cat([L, B_rpy], dim=-1)  # (nc, nt, 2, 6)
@@ -102,9 +108,10 @@ def schur_point_blocks(blocks: BABlocks, damping, dtype):
     """
     r, A, B = blocks
     lam = _damping(damping, A)
-    V = torch.einsum("ctim,ctin->tmn", A, A) + lam * torch.eye(3, dtype=dtype, device=A.device)
-    W = torch.einsum("ctia,ctim->ctam", B, A)
-    gp = torch.einsum("ctim,cti->tm", A, r)
+    V = torch.einsum("...ctim,...ctin->...tmn", A, A) + lam * torch.eye(3, dtype=dtype,
+                                                                        device=A.device)
+    W = torch.einsum("...ctia,...ctim->...ctam", B, A)
+    gp = torch.einsum("...ctim,...cti->...tm", A, r)
     Vinv = torch.linalg.inv(V)
     return Vinv, gp, W
 
@@ -117,32 +124,34 @@ def schur_camera_partials(blocks: BABlocks, Vinv, gp, W):
     the reduced system is S = diag(U + lam I) - SW, rhs = gc - rhs_red.
     """
     r, A, B = blocks
-    U = torch.einsum("ctia,ctib->cab", B, B)
-    gc = torch.einsum("ctia,cti->ca", B, r)
-    WVinv = torch.einsum("ctam,tmn->ctan", W, Vinv)
-    SW = torch.einsum("ctan,dtbn->cdab", WVinv, W)
-    rhs_red = torch.einsum("ctan,tn->ca", WVinv, gp)
+    U = torch.einsum("...ctia,...ctib->...cab", B, B)
+    gc = torch.einsum("...ctia,...cti->...ca", B, r)
+    WVinv = torch.einsum("...ctam,...tmn->...ctan", W, Vinv)
+    SW = torch.einsum("...ctan,...dtbn->...cdab", WVinv, W)
+    rhs_red = torch.einsum("...ctan,...tn->...ca", WVinv, gp)
     return U, SW, gc, rhs_red
 
 
 def _assemble(U, SW, gc, rhs_red, damping, dtype):
     """The reduced camera system (S (6 nc, 6 nc), b (6 nc,)) with camera 0
     pinned: its rows and columns zeroed, its diagonal block the identity."""
-    nc = U.shape[0]
+    nc = U.shape[-3]
+    lead = U.shape[:-3]
     dev = U.device
     lam = _damping(damping, U)
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     diag = U + lam * eye6
-    S_blocks = -SW + torch.einsum("cab,cd->cdab", diag, torch.eye(nc, dtype=dtype, device=dev))
+    S_blocks = -SW + torch.einsum("...cab,cd->...cdab", diag,
+                                  torch.eye(nc, dtype=dtype, device=dev))
     rhs_c = gc - rhs_red
 
     free = (torch.arange(nc, device=dev) > 0).to(dtype)
     S_blocks = S_blocks * free[:, None, None, None] * free[None, :, None, None]
-    S_blocks[0, 0] = eye6
+    S_blocks[..., 0, 0, :, :] = eye6
     rhs_c = rhs_c * free[:, None]
 
-    S = S_blocks.permute(0, 2, 1, 3).reshape(nc * 6, nc * 6)
-    return S, rhs_c.reshape(nc * 6)
+    S = S_blocks.transpose(-3, -2).reshape(*lead, nc * 6, nc * 6)
+    return S, rhs_c.reshape(*lead, nc * 6)
 
 
 def cg_jacobi(S, b, tol: float, max_iters: int):
@@ -181,6 +190,9 @@ def cg_jacobi(S, b, tol: float, max_iters: int):
 
 def _solve_cameras(S, b, cg_tol: float, cg_max_iters: int):
     if cg_max_iters > 0:
+        if S.dim() > 2:  # a batch of windows: CG runs one window after another
+            return torch.stack([_solve_cameras(Sw, bw, cg_tol, cg_max_iters)
+                                for Sw, bw in zip(S, b)])
         return cg_jacobi(S, b, cg_tol, cg_max_iters)
     return torch.linalg.solve(S, b)
 
@@ -210,10 +222,10 @@ def schur_reduce(blocks: BABlocks, damping, dtype):
 
 def schur_backsub(Vinv, gp, W, dc):
     """Point updates: dp_t = Vinv_t (gp_t - sum_c W_ct^T dc_c)."""
-    nc = W.shape[0]
-    dcb = dc.reshape(nc, 6)
-    Wt_dc = torch.einsum("ctam,ca->tm", W, dcb)  # (nt, 3)
-    return torch.einsum("tmn,tn->tm", Vinv, gp - Wt_dc)
+    nc = W.shape[-4]
+    dcb = dc.reshape(*dc.shape[:-1], nc, 6)
+    Wt_dc = torch.einsum("...ctam,...ca->...tm", W, dcb)  # (nt, 3)
+    return torch.einsum("...tmn,...tn->...tm", Vinv, gp - Wt_dc)
 
 
 def ba_schur(

@@ -16,7 +16,8 @@ puts it behind the interface of ``ingest.stills.StillsReader`` with a GPS
 fix and a capture time per still.
 
 ``render_burst`` and ``render_lanes`` are the full-size scenes of
-``chip_smoke.py``'s phases ``stills`` and ``multivideo``, which
+``chip_smoke.py``'s phases ``stills`` and ``multivideo``, and
+``LONG_FRAMES`` / ``LONG_RUN`` its phase ``longvideo``, which
 ``scripts/jax_reference_speeds.py`` runs through the JAX package.
 
 The pipeline's model holds exactly here: every textured point lies on the
@@ -56,6 +57,10 @@ STILLS_BURST = dict(speed_kmh=40.0, depth0_m=4.0, fps=30.0, stride=3, filename="
 # (seed, speed km/h) of each 1080p clip of render_lanes
 BATCH_LANES = ((0, 40.0), (1, 30.0), (2, 50.0))
 LANE_FRAMES = 20
+# the long-video run: the seed-0 1080p clip rendered to LONG_FRAMES frames
+# (its first 20 are the clip above), through LongVideoRunner.run(**LONG_RUN)
+LONG_FRAMES = 48
+LONG_RUN = dict(window=16, overlap=3, ba_refine=True)
 
 
 class SyntheticVideoReader:
