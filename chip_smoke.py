@@ -53,7 +53,15 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
   replenished, lanes promoted and refreshed, decode time and decode wait;
   then a run cut at 40 frames with a checkpoint and resumed (without BA
   refinement, as JAX's test) and a run whose second segment fails once and
-  is retried, each held to the uninterrupted run.
+  is retried, each held to the uninterrupted run;
+- phase ``cli``: the port's command line (``velocity_tpu_torch/cli.py``)
+  parsed by ``build_parser`` and run by its ``cmd_speed`` (with an HTML
+  report where matplotlib exists) and ``cmd_longvideo`` (window 16,
+  overlap 3, polyfit degree 3) on the clip's reader, each JSON held bit for
+  bit to ``SpeedEstimator.run`` and ``LongVideoRunner.run`` of the same
+  clip and config; ``graft_entry_torch.entry()`` (K1 and K2 launched,
+  outputs finite) and ``dryrun_multichip(4)`` (2 x 2 in-process shards on
+  the card) against a 1 x 1 mesh; ``native_loader.available()``.
 
 It checks that each path went through its kernels (the counts are set to 0
 just before a path's run and read just after) and recovered the clip's
@@ -114,6 +122,9 @@ LONG_CUT = 40
 RESUME_TOL_M, RESUME_TOL_KMH = 2.5e-2, 0.3
 # phase parallel: the windowed BA's windows x cameras (tracks: BA_TRACKS)
 PAR_WINDOWS, PAR_CAMERAS = 4, 16
+# phase cli: dryrun_multichip(4) on its 2 x 2 mesh against a 1 x 1 mesh
+# (relative; f32, the in-process sum over point shards in another order)
+DRYRUN_RTOL = 1e-5
 SPEED_VS_TRUTH = 0.05
 SPEED_VS_JAX = 0.02
 MAX_RESIDUAL_PX = 1.0
@@ -1338,6 +1349,137 @@ def phase_longvideo(dev):
     return launches
 
 
+def _run_command(argv, clip):
+    """Parse ``argv`` with the port's CLI parser, put the clip's reader and
+    annotation in ``args.video`` and ``args.annotation``, run the command
+    with its standard output captured; returns (args, the JSON object of
+    its last line, wall seconds)."""
+    import contextlib
+    import io
+
+    from velocity_tpu_torch import cli
+
+    args = cli.build_parser().parse_args(argv)
+    args.video, args.annotation = clip.reader, clip.annotation
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = args.fn(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]}: exit code {rc}")
+    return args, json.loads(out.getvalue().strip().splitlines()[-1]), wall
+
+
+def phase_cli(dev, clip):
+    """The command-line surface and the entry-point twin on the card:
+    ``speed`` (with ``--plot`` where matplotlib exists) and ``longvideo``
+    (window 16, overlap 3, polyfit degree 3) parsed by ``build_parser`` and
+    run by their ``cmd_*`` on the clip's reader, each held bit for bit to
+    the library call (``SpeedEstimator.run``, ``LongVideoRunner.run``) of
+    the same clip and config read in the same call, walls beside each other;
+    ``graft_entry_torch.entry()`` run once (K1 and K2 launched, outputs
+    finite); ``dryrun_multichip(4)`` (a 2 x 2 mesh of in-process shards on
+    the card) against the same call on a 1 x 1 mesh, within DRYRUN_RTOL;
+    ``native_loader.available()``. Returns {path: launches} for the
+    commands ("cli") and ``entry()`` ("entry")."""
+    import importlib.util
+
+    import graft_entry_torch
+    from velocity_tpu_torch import cli
+    from velocity_tpu_torch.config import BAConfig
+    from velocity_tpu_torch.ingest import native_loader
+    from velocity_tpu_torch.parallel import make_mesh, windowed_ba
+    from velocity_tpu_torch.pipeline.longvideo import LongVideoRunner
+    from velocity_tpu_torch.pipeline.speedest import SpeedEstimator
+
+    report = ROOT / "build" / "cli_report.html"
+    argv = ["speed", "--video", "clip.MOV", "--frames", str(N_FRAMES), "--json", "--quiet"]
+    if importlib.util.find_spec("matplotlib") is None:
+        print("cli: matplotlib is absent on this machine; speed runs without --plot")
+    else:
+        report.parent.mkdir(parents=True, exist_ok=True)
+        argv += ["--plot", str(report)]
+    _reset_counts()
+    args, got, cli_wall = _run_command(argv, clip)
+    speed_counts, _ = _read_counts()
+    t0 = time.perf_counter()
+    res = SpeedEstimator(cli._pipeline_config(args), device=dev).run(
+        clip.reader, annotation=clip.annotation, n_frames=N_FRAMES, verbose=False)
+    torch.cuda.synchronize()
+    lib_wall = time.perf_counter() - t0
+    plotted = report.exists()
+    report.unlink(missing_ok=True)
+    same = (got["speed_kmh"] == res.speed_kmh and got["residual_px"] == res.residual_px
+            and got["speed_std"] == res.speed_std)
+    print(f"cli speed: {got['speed_kmh']!r} km/h, residual {got['residual_px']!r} px; "
+          f"SpeedEstimator.run {res.speed_kmh!r} km/h, {res.residual_px!r} px; bit-equal "
+          f"{same}; HTML report written {plotted}; wall cli {cli_wall:.3f} s (report "
+          f"included), library {lib_wall:.3f} s; launches K1 {speed_counts['lk_block']} K2 "
+          f"{speed_counts['extract_slabs']}")
+    if not same:
+        raise AssertionError(f"cli speed {got} differs from SpeedEstimator.run")
+    _check_run("cli speed", res, clip, speed_counts, ("lk_block", "extract_slabs"),
+               JAX_CPU_SPEED_KMH["driver"])
+
+    argv = ["longvideo", "--video", "clip.MOV", "--frames", str(N_FRAMES), "--window", "16",
+            "--overlap", "3", "--smooth", "3", "--json", "--quiet"]
+    _reset_counts()
+    args, got, cli_wall = _run_command(argv, clip)
+    long_counts, _ = _read_counts()
+    t0 = time.perf_counter()
+    res = LongVideoRunner(cli._pipeline_config(args), device=dev).run(
+        clip.reader, annotation=clip.annotation, n_frames=N_FRAMES, window=16, overlap=3,
+        verbose=False)
+    torch.cuda.synchronize()
+    lib_wall = time.perf_counter() - t0
+    want = {"speed_kmh": res.speed_kmh, "speed_std": res.speed_std,
+            "residual_px": res.residual_px, "windows": res.timings["windows"],
+            "ba_refined": res.timings["ba_refined"],
+            "speed_kmh_polyfit": float(np.nanmean(res.smoothed(3)[1][1:]))}
+    same = all(got[k] == v for k, v in want.items())
+    print(f"cli longvideo: {json.dumps({k: got[k] for k in want})}; LongVideoRunner.run "
+          f"equal {same}; wall cli {cli_wall:.3f} s, library {lib_wall:.3f} s; launches K1 "
+          f"{long_counts['lk_block']} K2 {long_counts['extract_slabs']}")
+    if not same:
+        raise AssertionError(f"cli longvideo {got} differs from LongVideoRunner.run {want}")
+    _check_run("cli longvideo", res, clip, long_counts, ("lk_block", "extract_slabs"), None)
+
+    fn, example = graft_entry_torch.entry()
+    fn(*example)  # warm
+    fn, example = graft_entry_torch.entry()
+    _reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*example)
+    torch.cuda.synchronize()
+    entry_wall = time.perf_counter() - t0
+    entry_counts, _ = _read_counts()
+    finite = all(bool(torch.isfinite(o).all()) for o in out if o.is_floating_point())
+    print(f"entry: fused_frame_step at 1024 lanes on a 512x1024 pair, {entry_wall * 1e3:.1f} ms "
+          f"warm; outputs {[tuple(o.shape) for o in out]}, finite {finite}; launches K1 "
+          f"{entry_counts['lk_block']} K2 {entry_counts['extract_slabs']}")
+    if not finite or entry_counts["lk_block"] <= 0 or entry_counts["extract_slabs"] <= 0:
+        raise AssertionError(f"entry(): finite {finite}, launches {entry_counts}")
+
+    t0 = time.perf_counter()
+    points, cams, iters = graft_entry_torch.dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry_wall = time.perf_counter() - t0
+    _, ba_args = graft_entry_torch.multichip_problem(4)
+    ref = windowed_ba(*ba_args, make_mesh({"window": 1, "point": 1}, devices=[dev]),
+                      config=BAConfig(max_iters=3))
+    errs = (_rel(points, ref[0]), _rel(cams, ref[1]))
+    print(f"dryrun_multichip(4): window 2 x point 2 in process on {dev}, {dry_wall:.3f} s, "
+          f"iterations {iters.tolist()} (1 x 1 mesh {ref[2].tolist()}); against the 1 x 1 "
+          f"mesh points {errs[0]:.2e} cams {errs[1]:.2e} (limit {DRYRUN_RTOL:g})")
+    if max(errs) > DRYRUN_RTOL or not torch.equal(iters.cpu(), ref[2].cpu()):
+        raise AssertionError(f"dryrun_multichip(4) differs from the 1 x 1 mesh: {errs}")
+    print(f"cli: native_loader.available() = {native_loader.available()}")
+    return {"cli": {k: speed_counts[k] + long_counts[k] for k in speed_counts},
+            "entry": entry_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1367,12 +1509,14 @@ def main() -> int:
     phase_multivideo(dev, clip)
     sharded_lk = phase_parallel(dev, clip)
     longvideo = phase_longvideo(dev)
+    surface = phase_cli(dev, clip)
 
     k1_main = next(r for r in k1_rows if r.get("win") == 51 and r.get("cubic") and r.get("it0") == 0)
     k2_main = next(r for r in k2_rows if r["size"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    paths = {"lanes": lanes, "fast": fast, "sharded_lk": sharded_lk, "longvideo": longvideo}
+    paths = {"lanes": lanes, "fast": fast, "sharded_lk": sharded_lk, "longvideo": longvideo,
+             **surface}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}

@@ -45,6 +45,35 @@ def _jcfg(lk_backend="lanes", anchor="msv", **tracker):
                                                       lk_backend=lk_backend, **tracker))
 
 
+def write_clip_file(clip, directory):
+    """The clip as a file for the command line and the decoders: a lossless
+    FFV1 ``.avi`` that repeats the clip's frame 0 once before it (cv2's
+    reader stamps a file's first two frames 0 s, then steps by 1/fps, one
+    frame behind the native loader's index/fps), and an annotation ``.npz``
+    at start frame 1. A file's focal is the camera database's for its
+    extension, so the annotation's corners are stored at the native scale
+    that gives the clip's own focal and image corners. Returns (video path,
+    annotation path, native scale)."""
+    import cv2
+
+    from velocity_tpu_torch.camera.annotations import Annotation, save_annotation
+    from velocity_tpu_torch.camera.database import camera_info
+
+    info = clip.reader.info
+    video = directory / "clip.avi"
+    writer = cv2.VideoWriter(str(video), cv2.VideoWriter_fourcc(*"FFV1"), info.fps,
+                             (WIDTH, HEIGHT), isColor=False)
+    for gray in (clip.reader.grays[0], *clip.reader.grays):
+        writer.write(gray)
+    writer.release()
+    focal = camera_info(video, info.platform, width=WIDTH, height=HEIGHT).focal_pix[0]
+    scale = float(info.focal_pix[0] * SCALE / focal)
+    annotation = directory / "clip.avi.npz"
+    q = (clip.annotation.q * SCALE / scale).astype(np.float32)
+    save_annotation(annotation, Annotation(q=q, fname=video.name, start_frame=1))
+    return video, annotation, scale
+
+
 def _jax_camera(info):
     """A port CameraInfo as the JAX package's type (its intrinsics are JAX)."""
     jinfo = jax_camera_info(info.filename, info.platform, width=info.width, height=info.height,
@@ -57,12 +86,12 @@ def _jax_info(clip):
     return _jax_camera(clip.reader.info)
 
 
-def _frame_draws(frame_key):
+def _frame_draws(frame_key, trials=TRIALS):
     """The two Gumbel draws of one frame step: stage 1 and stage 2 each
     split the frame's key once."""
     key, k1 = jax.random.split(frame_key)
     key, k2 = jax.random.split(key)
-    return [torch.as_tensor(np.array(jax.random.gumbel(k, (TRIALS, FEATURES),
+    return [torch.as_tensor(np.array(jax.random.gumbel(k, (trials, FEATURES),
                                                        dtype=jnp.float32)))
             for k in (k1, k2)]
 
@@ -77,7 +106,7 @@ def _jax_gumbel(n_frames, seed=0, frames=None):
     return keys, [g for j in frames for g in _frame_draws(keys[j])]
 
 
-def _jax_gumbel_driver(n_frames):
+def _jax_gumbel_driver(n_frames, trials=TRIALS):
     """JAX's RANSAC noise in the order the per-frame driver draws it: the
     run's key is split once per frame, key, key_j = split(key)."""
     key = jax.random.PRNGKey(0)
@@ -85,7 +114,7 @@ def _jax_gumbel_driver(n_frames):
     for _ in range(1, n_frames):
         key, kf = jax.random.split(key)
         keys.append(kf)
-        draws += _frame_draws(kf)
+        draws += _frame_draws(kf, trials)
     return keys, draws
 
 

@@ -15,11 +15,15 @@ from velocity_tpu_torch.ops import lk_block_pallas, patch_pallas, slab_pallas
 ROOT = Path(__file__).resolve().parent.parent
 
 MODULES = [
+    "graft_entry_torch",
     "velocity_tpu_torch",
     "velocity_tpu_torch.camera.exif",
+    "velocity_tpu_torch.cli",
     "velocity_tpu_torch.convert",
     "velocity_tpu_torch.cuda_build",
     "velocity_tpu_torch.geometry.geodesy",
+    "velocity_tpu_torch.geometry.norms",
+    "velocity_tpu_torch.ingest.native_loader",
     "velocity_tpu_torch.ingest.stills",
     "velocity_tpu_torch.ops.harris",
     "velocity_tpu_torch.ops.interp",
@@ -41,6 +45,7 @@ MODULES = [
     "velocity_tpu_torch.parallel.track_shard",
     "velocity_tpu_torch.parallel.windows",
     "velocity_tpu_torch.pipeline.anchor",
+    "velocity_tpu_torch.pipeline.datasets",
     "velocity_tpu_torch.pipeline.longvideo",
     "velocity_tpu_torch.pipeline.multivideo",
     "velocity_tpu_torch.pipeline.scan",
@@ -56,12 +61,15 @@ MODULES = [
     "velocity_tpu_torch.utils",
     "velocity_tpu_torch.utils.profiling",
     "velocity_tpu_torch.utils.strings",
+    "velocity_tpu_torch.viz",
+    "velocity_tpu_torch.viz.plots",
 ]
 
 
 def test_import_pulls_in_no_jax():
-    """A fresh interpreter that imports every port module has no jax,
-    jaxlib or velocity_tpu module loaded."""
+    """A fresh interpreter that imports every port module (and the root
+    ``graft_entry_torch.py``) has no jax, jaxlib or velocity_tpu module
+    loaded."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"

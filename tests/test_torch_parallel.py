@@ -114,12 +114,21 @@ def _jproblem(arrays):
 
 
 def test_make_mesh_rules():
-    """JAX's rules: a default 'point' axis over every device, -1 for the
+    """JAX's rules: a default 'point' axis over every CUDA device, -1 for the
     rest at most once, the too-few-devices error; an explicit device list
-    may repeat one device."""
-    assert device_counts() == (torch.cuda.device_count() if torch.cuda.is_available() else 1)
-    default = make_mesh()
-    assert default.shape == {"point": device_counts()}
+    may repeat one device. Without a CUDA device and without ``devices``,
+    make_mesh raises: it never builds a CPU mesh by itself."""
+    if torch.cuda.is_available():
+        assert device_counts() == torch.cuda.device_count()
+        default = make_mesh()
+        assert default.shape == {"point": device_counts()}
+        with pytest.raises(ValueError, match=f"needs {device_counts() + 1} devices"):
+            make_mesh({"point": device_counts() + 1})
+    else:
+        assert device_counts() == 0
+        for sizes in (None, {"point": 1}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make_mesh(sizes)
     m = make_mesh({"window": 2, "point": -1}, devices=[CPU] * 8)
     assert m.shape == {"window": 2, "point": 4}
     assert m.devices.shape == (2, 4) and m.device(window=1, point=3) == CPU
@@ -128,8 +137,6 @@ def test_make_mesh_rules():
         make_mesh({"a": -1, "b": -1}, devices=[CPU] * 4)
     with pytest.raises(ValueError, match="needs 8 devices, have 1"):
         make_mesh({"point": 8}, devices=[CPU])
-    with pytest.raises(ValueError, match=f"needs {device_counts() + 1} devices"):
-        make_mesh({"point": device_counts() + 1})
     # the same rules as JAX's make_mesh on its 8 CPU devices
     assert dict(jax_make_mesh({"window": 2, "point": -1}).shape) == m.shape
 
@@ -409,3 +416,62 @@ def test_fused_step_sharded_matches_unsharded_and_jax():
     np.testing.assert_array_equal(got[1].numpy(), want[1])
     np.testing.assert_allclose(got[2].numpy(), want[2], rtol=0, atol=1e-4)
 
+
+
+# ------------------------------------------------------- entry-point twin
+
+
+def test_entry_runs_the_fused_step():
+    """``graft_entry_torch.entry(device="cpu")``: its ``fn(*args)`` is
+    ``pipeline.tracker.fused_frame_step`` at ``TrackerConfig()`` (1024
+    lanes) with the f32 solver, bit for bit against the function called
+    directly on the same inputs and an equally seeded generator."""
+    import graft_entry_torch
+    from velocity_tpu_torch.pipeline.tracker import fused_frame_step
+
+    fn, args = graft_entry_torch.entry(device="cpu")
+    assert all(a.device == CPU for a in args[:7]) and args[3].shape == (1024, 2)
+    got = fn(*args)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    want = fused_frame_step(*args[:8], gen, TrackerConfig(), SolverConfig(dtype="float32"),
+                            torch.float32)
+    assert len(got) == len(want) == 9
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[1].sum()) > 512 and torch.isfinite(got[4]).all()
+
+
+# dryrun_multichip's f32 problem on a 2 x 2 mesh against 1 x 1: the point
+# shards' partial sums of 512 tracks are added in another order, and three
+# Gauss-Newton steps of a BA with a free scale gauge amplify that rounding
+# (on this CPU at one thread: cameras 1.04e-5, points 2.1e-6 relative)
+DRYRUN_RTOL = 1e-4
+
+
+def test_dryrun_multichip_matches_one_shard():
+    """``dryrun_multichip(4, device="cpu")``: window 2 x point 2 in process,
+    within DRYRUN_RTOL (max |a - b| / max |b|) of the same windowed BA step
+    on a 1 x 1 mesh, with equal iterations."""
+    import graft_entry_torch
+
+    points, cams, iters = graft_entry_torch.dryrun_multichip(4, device="cpu")
+    mesh, args = graft_entry_torch.multichip_problem(4, device="cpu")
+    assert mesh.shape == {"window": 2, "point": 2} and args[0].shape == (2, 8, 1024, 2)
+    ref = windowed_ba(*args, _mesh(window=1, point=1), config=BAConfig(max_iters=3))
+    for got, want in ((points, ref[0]), (cams, ref[1])):
+        assert float((got - want).abs().max() / want.abs().max()) <= DRYRUN_RTOL
+    assert torch.equal(iters, ref[2])
+    assert graft_entry_torch.multichip_problem(3, device="cpu")[0].shape == {"window": 1,
+                                                                            "point": 3}
+
+
+def test_entry_points_do_not_run_on_the_cpu_unasked():
+    import graft_entry_torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry_torch.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry_torch.dryrun_multichip(4)

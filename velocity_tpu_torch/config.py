@@ -3,7 +3,7 @@
 The reference hardcodes every constant (driver toggles are code edits, KLT
 params are dicts in code, LM constants inline — see SURVEY.md §5 "Config").
 Here they are first-class dataclasses with the reference values as defaults,
-wired to the CLI in ``velocity_tpu.cli`` (the port has no CLI yet).
+wired to the CLI in ``velocity_tpu_torch.cli``.
 """
 
 from __future__ import annotations

@@ -26,6 +26,26 @@ class Intrinsics(NamedTuple):
     def to(self, dtype=None, device=None):
         return Intrinsics(*(torch.as_tensor(v).to(dtype=dtype, device=device) for v in self))
 
+    @classmethod
+    def from_matrix_rowvec(cls, K):
+        """Build from the reference's row-vector intrinsic matrix layout."""
+        K = torch.as_tensor(K)
+        return cls(fx=K[0, 0], fy=K[1, 1], cx=K[2, 0], cy=K[2, 1], skew=K[1, 0])
+
+    def matrix_rowvec(self, dtype=None):
+        """Row-vector intrinsic matrix ``[[fx,0,0],[skew,fy,0],[cx,cy,1]]``."""
+        fx, fy, cx, cy, skew = (torch.as_tensor(v, dtype=dtype) for v in self)
+        z = torch.zeros_like(fx)
+        o = torch.ones_like(fx)
+        return torch.stack([torch.stack([fx, z, z]), torch.stack([skew, fy, z]),
+                            torch.stack([cx, cy, o])])
+
+
+def perspective_divide(p3):
+    """(..., 3) homogeneous camera points -> (..., 2) normalized image points
+    (reference ``pscale``, utils/common.py:145-147)."""
+    return p3[..., 0:2] / p3[..., 2:3]
+
 
 def project_camera_points(intr: Intrinsics, pc):
     """Project camera-frame points (..., 3) to pixels (..., 2)."""

@@ -56,3 +56,11 @@ def matrix_to_rpy(C):
     pitch = torch.asin(-C[..., 2, 0])
     yaw = torch.atan2(C[..., 1, 0], C[..., 0, 0])
     return torch.stack([roll, pitch, yaw], dim=-1)
+
+
+def rotate_translate(points, rpy, t):
+    """Fused rotate+translate: ``points @ rpy_to_matrix(rpy) + t`` for
+    (..., N, 3) row-vector points, (..., 3) roll-pitch-yaw and a (..., 3)
+    translation broadcast over the points (reference ``transform``,
+    utils/transforms.py:27-48)."""
+    return points @ rpy_to_matrix(rpy) + t[..., None, :]

@@ -117,14 +117,17 @@ class Mesh:
 
 
 def device_counts() -> int:
-    """The CUDA devices of this process, or 1 (the CPU) where there are none."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+    """The CUDA devices of this process (0 where there are none)."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 0
 
 
 def _default_devices() -> list:
-    if torch.cuda.is_available():
-        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return [torch.device("cpu")]
+    """Every CUDA device of this process; raises where there is none (a mesh
+    is never put on the CPU unless the caller lists CPU devices)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_mesh: no CUDA device; pass devices=['cpu'] * n to build "
+                           "a mesh on the CPU")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None, devices=None) -> Mesh:
@@ -133,7 +136,7 @@ def make_mesh(axis_sizes: dict[str, int] | None = None, devices=None) -> Mesh:
 
     ``devices`` (a list, or an array whose order is flattened): the slots'
     devices, in row-major order; it may repeat one device. Default: the
-    devices ``device_counts`` counts.
+    CUDA devices ``device_counts`` counts (an error where there are none).
     """
     devices = [torch.device(d) for d in np.asarray(
         devices if devices is not None else _default_devices(), dtype=object).reshape(-1)]

@@ -67,7 +67,8 @@ def run_batch(
         start = start_frames[v] if start_frames else ann.start_frame
         with open_reader(video, cfg.platform) as vr:
             cam = vr.info
-            host, times, indices = _decode(vr, start, n, cfg.read_speed, pin=dev.type == "cuda")
+            host, times, indices, _ = _decode(vr, start, n, cfg.read_speed,
+                                              pin=dev.type == "cuda")
         frames = host.to(dev, non_blocking=True)
         q = ann.q * scale
         p, valid, boxa, boxb = _init_features(cfg, frames[0], q)

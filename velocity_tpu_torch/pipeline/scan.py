@@ -1,7 +1,8 @@
 """The scan speed-estimation runner: the port's main path end to end.
 
 Torch twin of ``velocity_tpu/pipeline/scan.py:ScanSpeedRunner.run``. Frames
-are decoded into a pinned host stack and copied to the device with
+are decoded (a path through the native loader where it loads, else the cv2
+reader, as JAX decodes one) into a pinned host stack and copied to the device with
 ``non_blocking=True``; frame 0 is initialised (Harris + subpixel refinement
 on the device, plate geometry on the host in f64); ``scan_segment``, one
 eager ``fused_frame_step_pyr`` per frame in place of the JAX ``lax.scan``,
@@ -106,18 +107,34 @@ def stats_table(B, valid_hist, res, proc: float):
     return S
 
 
-def _decode(reader, start: int, n: int, step: int, pin: bool):
-    """(frames (n', H, W) uint8 host tensor, times (n',), indices (n',))."""
-    frames = list(reader.frames(start=start, count=n, step=step))
+def _decode(reader, start: int, n: int, step: int, pin: bool, path=None):
+    """(frames (n', H, W) uint8 host tensor, pinned where ``pin``, times
+    (n',), indices (n',), decoder). Where ``path`` is given, the native
+    loader decodes it if it loads ("native"), else ``reader`` does
+    ("python"), as JAX's scan runner decodes a path; without ``path``,
+    ``reader`` does ("reader")."""
+    frames = None
+    if path is not None:
+        from velocity_tpu_torch.ingest.native_loader import NativeVideoStream
+
+        try:
+            with NativeVideoStream(path, start=start, count=n, step=step) as stream:
+                frames, decoder = [(g, t, i) for g, _small, t, i in stream], "native"
+        except OSError:
+            pass
+    if frames is None:
+        decoder = "python" if path is not None else "reader"
+        frames = [(fr.gray, fr.time_s, fr.index)
+                  for fr in reader.frames(start=start, count=n, step=step)]
     if not frames:
         raise ValueError(f"no frames decoded from frame {start}")
-    H, W = frames[0].gray.shape
+    H, W = frames[0][0].shape
     stack = torch.empty((len(frames), H, W), dtype=torch.uint8, pin_memory=pin)
-    for i, fr in enumerate(frames):
-        stack[i] = torch.from_numpy(fr.gray)
-    times = np.array([fr.time_s for fr in frames], np.float64)
-    indices = np.array([fr.index for fr in frames], np.float64)
-    return stack, times, indices
+    for i, (gray, _t, _i) in enumerate(frames):
+        stack[i] = torch.from_numpy(gray)
+    times = np.array([t for _g, t, _i in frames], np.float64)
+    indices = np.array([i for _g, _t, i in frames], np.float64)
+    return stack, times, indices, decoder
 
 
 class FrameStream:
@@ -213,9 +230,12 @@ class ScanSpeedRunner:
 
     def run(self, video, annotation=None, n_frames=None, start_frame=None,
             verbose=True):
-        """Run the pipeline over ``video``: a path (decoded with the cv2
-        ``VideoReader``) or an object with its interface (``.info``,
-        ``.frames(start, count, step)``, context manager)."""
+        """Run the pipeline over ``video``: a path (probed with the cv2
+        ``VideoReader``, decoded by the native loader where it loads, else
+        by that reader) or an object with the reader's interface (``.info``,
+        ``.frames(start, count, step)``, context manager).
+        ``timings["decoder"]`` names the decoder: "native", "python" or
+        "reader"."""
         cfg = self.config
         dev = self.device
         sdt = torch.float64 if cfg.solver.dtype == "float64" else torch.float32
@@ -228,8 +248,9 @@ class ScanSpeedRunner:
         with open_reader(video, cfg.platform) as vr:
             cam = vr.info
             n = frames_available(cam, start, n, cfg.read_speed)
-            host, times, indices = _decode(vr, start, n, cfg.read_speed,
-                                           pin=dev.type == "cuda")
+            host, times, indices, marks["decoder"] = _decode(
+                vr, start, n, cfg.read_speed, pin=dev.type == "cuda",
+                path=None if vr is video else video)
         n = host.shape[0]
         frames = host.to(dev, non_blocking=True)
         marks["decode_s"] = time.perf_counter() - t_wall0
