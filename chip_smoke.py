@@ -61,19 +61,24 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
   bit to ``SpeedEstimator.run`` and ``LongVideoRunner.run`` of the same
   clip and config; ``graft_entry_torch.entry()`` (K1 and K2 launched,
   outputs finite) and ``dryrun_multichip(4)`` (2 x 2 in-process shards on
-  the card) against a 1 x 1 mesh; ``native_loader.available()``.
+  the card) against a 1 x 1 mesh; ``native_loader.available()``;
+- phase ``bench``: ``bench_torch.run_bench`` (the port's bench, lean runs)
+  on the clip in ``scan`` and ``frames`` modes, each held to the truth and
+  the JAX CPU value; the scan runner lean and full in turns, the lean
+  trajectory bit-equal to the full one; ``bench_ba_torch.py`` written to a
+  temporary directory, every row's value finite.
 
 It checks that each path went through its kernels (the counts are set to 0
 just before a path's run and read just after) and recovered the clip's
 speed, and prints each kernel's launches by shape with launches x (time -
-bound). The ``kernels`` line gives K1's and K2's launches on the long-video
-run and each kernel's launches on every counted path. Any failure exits
-non-zero; there is no CPU fallback. The last line is a JSON object with
-``"ok": true``.
+bound). The ``kernels`` line gives K1's and K2's launches on the bench's
+scan-mode run (warm-up and timed runs) and each kernel's launches on every
+counted path. Any failure exits non-zero; there is no CPU fallback. The
+last line is a JSON object with ``"ok": true``.
 
 Each kernel's bound is the larger of its bytes over the card's memory rate
 and its f32 operations over the card's f32 rate (H100 SXM published peaks,
-``PEAK_BYTES_PER_S`` and ``PEAK_F32_PER_S``), counted from this run's
+``utils/profiling.py:bound_ms``), counted from this run's
 inputs: a gather reads only the pixels its windows cover, once each; K1
 reads the per-point tensors of the points still active on entry.
 """
@@ -83,13 +88,17 @@ from __future__ import annotations
 import json
 import re
 import statistics
-import subprocess
 import sys
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+
+from bench_ba_torch import ba_scene as _ba_scene
+from velocity_tpu_torch.utils.profiling import card_line, cuda_ms, k1_bound_ms
+from velocity_tpu_torch.utils.profiling import gather_bound_ms as _gather_bound
+from velocity_tpu_torch.utils.profiling import window_index as _window_index
 
 ROOT = Path(__file__).resolve().parent
 
@@ -131,6 +140,7 @@ MAX_RESIDUAL_PX = 1.0
 N_POINTS = 1024
 N_FRAMES = 20
 PROFILE_FRAMES = 5  # the profiled runs: reading a 20-frame trace takes minutes
+BENCH_REPS = 3  # phase bench: timed runs after the warm-up (bench_torch.REPS is 5)
 ALWAYS_RESCUE = 10**6  # min_affine_inliers that sends every frame through the rescue
 # bundle adjustment on the card: the windowed size (cameras, tracks), the
 # track count of the dense-Jacobian solver, and the relative tolerances
@@ -141,8 +151,6 @@ BA_RTOL = {"float64": 1e-8, "float32": 1e-3}
 # CG stops on its residual, and what is left of it lies along the nearly free
 # scale direction: with the CG camera solver the gauge factor is held to this
 BA_CG_GAUGE_TOL = 1e-2
-PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_F32_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 # (S, N) of every slab extraction on the lanes path: stages 1-2, stage-3
 # source, stage-3 backward destination, warped slabs, corner_subpix
 SLAB_SHAPES = ((24, 1024), (56, 1024), (64, 1024), (72, 1024), (27, 1020))
@@ -173,55 +181,8 @@ K3_CASES = (("P34 frame", 1080, 1920, 34), ("P34 top level", 17, 30, 34),
             ("P70 frame", 1080, 1920, 70), ("Q82 padded frame", 1244, 2084, 82))
 
 
-def cuda_ms(fn, calls: int = 10, rounds: int = 5) -> float:
-    """Device milliseconds per ``fn()`` call: CUDA events around ``calls``
-    back-to-back calls, median over ``rounds``. A spin kernel runs first so
-    that the host queues the calls ahead of the device; where the host
-    still cannot keep up (the plain versions launch hundreds of small
-    kernels per call) the time includes their launch cost."""
-    fn()
-    torch.cuda.synchronize()
-    per_call = []
-    for _ in range(rounds):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        a.record()
-        for _ in range(calls):
-            fn()
-        b.record()
-        b.synchronize()
-        per_call.append(a.elapsed_time(b) / calls)
-    return statistics.median(per_call)
-
-
-def bound(n_bytes: float, n_flops: float):
-    """(least milliseconds, "bytes" or "operations") for the given work."""
-    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_flops / PEAK_F32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def _window_index(x0, y0, size: int):
-    """(rows (N, size, 1), cols (N, 1, size)) of windows at corners (x0, y0)."""
-    ar = torch.arange(size, device=x0.device)
-    return ((y0.long()[:, None] + ar)[:, :, None], (x0.long()[:, None] + ar)[:, None, :])
-
-
-def _gather_bound(img, rows, cols, extra_bytes: int):
-    """Bound of a window gather: the distinct pixels its windows cover, read
-    once, plus every output word written once and ``extra_bytes``."""
-    H, W = img.shape
-    covered = torch.zeros(H * W, dtype=torch.bool, device=img.device)
-    covered[(rows * W + cols).reshape(-1)] = True
-    n_out = rows.shape[0] * rows.shape[1] * cols.shape[2]
-    return bound(4 * (int(covered.sum()) + n_out) + extra_bytes, 0)
-
-
 def phase_device():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     return smi
@@ -449,19 +410,6 @@ def _k1_edge(dev, kind, win, P, n_taps, cubic, N):
     return tuple(args), kw
 
 
-def _k1_bound(win, P, n_taps, n_active):
-    """K1's least time: the points active on entry read their slab and three
-    windows; every point reads 12 and writes 5 f32 words. Operations per
-    active point and iteration: the x-pass over win+n_taps-1 rows and the
-    y-pass (one multiply-add per tap each) and the residual sums (5 per
-    window pixel)."""
-    from velocity_tpu_torch.ops.lk_block_pallas import BLOCK_ITERS
-
-    n_bytes = 4 * (n_active * (P * P + 3 * win * win) + N_POINTS * (12 + 5))
-    per_iter = 2 * n_taps * win * (win + n_taps - 1) + 2 * n_taps * win * win + 5 * win * win
-    return bound(n_bytes, n_active * BLOCK_ITERS * per_iter)
-
-
 def _k1_check(k1, args, kw, label, atol=None):
     """K1 against its plain version on ``args``: points and last steps
     within K1_RTOL/K1_ATOL (or within ``atol`` absolute, where given), done
@@ -494,7 +442,7 @@ def phase_k1(dev):
             ms = cuda_ms(lambda: k1.lk_block(*args, **kw))
             plain_ms = cuda_ms(lambda: k1.block_iters_ref(*args, **kw))
             n_active = int((args[10] & ~args[12]).sum())
-            bound_ms, bound_by = _k1_bound(win, P, n_taps, n_active)
+            bound_ms, bound_by = k1_bound_ms(win, P, n_taps, n_active, N_POINTS)
             rows.append(dict(win=win, P=P, n_taps=n_taps, cubic=cubic, it0=it0,
                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound_ms, bound_by=bound_by))
@@ -792,33 +740,6 @@ def phase_driver(dev, clip):
         raise AssertionError("the scan runner's rescue and the driver disagree")
     print(f"scan runner, rescue forced: re-ran through the driver, speed {sres.speed_kmh:.4f} "
           f"km/h, trajectory bit-equal to the driver's: {np.array_equal(sres.B, fres.B)}")
-
-
-def _ba_scene(nc, nt, dtype, dev, seed=0):
-    """The windowed BA problem: ``nc`` cameras on a 3.3 m line, ``nt`` points
-    6-10 m away, 0.3 px of pixel noise, the structure and the camera track
-    perturbed (5 cm, 3 cm, 5 mrad). Made on the host from ``seed``."""
-    from velocity_tpu_torch.geometry.projection import Intrinsics
-    from velocity_tpu_torch.solvers.ba import BAProblem
-
-    rng = np.random.default_rng(seed)
-    f, cx, cy = 1993.9, 960.5, 540.5
-    pts = np.concatenate([rng.uniform(-2, 2, (nt, 2)), rng.uniform(6, 10, (nt, 1))], 1)
-    pos = np.stack([np.linspace(0, 3.3, nc), np.zeros(nc), np.zeros(nc)], 1)
-    pc = pts[None] + pos[:, None]
-    pix = np.stack([f * pc[..., 0] / pc[..., 2] + cx, f * pc[..., 1] / pc[..., 2] + cy], -1)
-    pix += rng.normal(0, 0.3, pix.shape)
-    cams0 = np.concatenate([pos, np.zeros((nc, 3))], 1)
-    cams0[1:, 0:3] += rng.normal(0, 0.03, (nc - 1, 3))
-    cams0[1:, 3:6] += rng.normal(0, 0.005, (nc - 1, 3))
-    pts0 = pts + rng.normal(0, 0.05, pts.shape)
-
-    def t(a):
-        return torch.as_tensor(a, dtype=dtype, device=dev)
-
-    return BAProblem(intr=Intrinsics(*(t(v) for v in (f, f, cx, cy, 0.0))), pixels=t(pix),
-                     mask=torch.ones((nc, nt), dtype=torch.bool, device=dev),
-                     points0=t(pts0), cams0=t(cams0))
 
 
 def _events_ms(fn, rounds: int = 5) -> float:
@@ -1480,6 +1401,67 @@ def phase_cli(dev, clip):
             "entry": entry_counts}
 
 
+def phase_bench(dev, clip):
+    """The port's bench entry on the clip: ``bench_torch.run_bench`` in
+    ``scan`` and ``frames`` modes (warm-up and ``BENCH_REPS`` timed lean
+    runs each; every JSON line printed), each held to the truth and the JAX
+    CPU value of its path, with K1 and K2 launched; then the scan runner
+    lean and full in turns (lean, full, full, lean: walls beside each
+    other), the lean trajectory bit-equal to the full one; then
+    ``bench_ba_torch.py`` written to a temporary directory, its rows
+    printed, each value finite. Returns the scan mode's launches."""
+    import tempfile
+
+    import bench_ba_torch
+    import bench_torch
+    from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
+
+    counts, results = {}, {}
+    for mode, jax_kmh in (("scan", JAX_CPU_SPEED_KMH["lanes"]),
+                          ("frames", JAX_CPU_SPEED_KMH["driver"])):
+        _reset_counts()
+        out, res = bench_torch.run_bench(clip.reader, clip.annotation, n_frames=N_FRAMES,
+                                         reps=BENCH_REPS, mode=mode, device=dev,
+                                         clip="synthetic", reference_kmh=clip.speed_kmh)
+        counts[mode], _ = _read_counts()
+        results[mode] = res
+        print(json.dumps(out))
+        print(f"bench {mode}: {out['value']:.3f} frames/s, launches over the warm-up and "
+              f"{BENCH_REPS} timed runs K1 {counts[mode]['lk_block']} K2 "
+              f"{counts[mode]['extract_slabs']}")
+        _check_run(f"bench {mode}", res, clip, counts[mode], ("lk_block", "extract_slabs"),
+                   jax_kmh)
+
+    runner = ScanSpeedRunner(bench_torch.bench_config(), device=dev)
+    walls, runs = {True: [], False: []}, {}
+    for lean in (True, False, False, True):
+        runs[lean] = runner.run(clip.reader, annotation=clip.annotation, n_frames=N_FRAMES,
+                                verbose=False, lean=lean)
+        walls[lean].append(runs[lean].timings["wall_s"])
+    same = [np.array_equal(r.B[:, 0:6], runs[False].B[:, 0:6])
+            for r in (runs[True], results["scan"])]
+    print(f"bench lean / full scan runs in turns: lean {walls[True][0]:.3f} and "
+          f"{walls[True][1]:.3f} s, full {walls[False][0]:.3f} and {walls[False][1]:.3f} s "
+          f"({N_FRAMES} frames); B[:, 0:6] of the lean run and of the bench's last run "
+          f"bit-equal to the full run's: {same}")
+    if not all(same):
+        raise AssertionError("a lean scan run's trajectory differs from the full run's")
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        path = Path(d) / "bench_ba.json"
+        rc = bench_ba_torch.main(["--out", str(path), "--device", str(dev)])
+        rows = json.loads(path.read_text())["rows"]
+    print(f"bench_ba_torch: exit code {rc}, {len(rows)} rows in "
+          f"{time.perf_counter() - t0:.1f} s")
+    bad = [r["metric"] for r in rows if not (isinstance(r.get("value"), (int, float))
+                                             and np.isfinite(r["value"]))]
+    if rc != 0 or bad:
+        raise AssertionError(f"bench_ba_torch: exit code {rc}, rows without a finite value "
+                             f"{bad}")
+    return counts["scan"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -1510,28 +1492,29 @@ def main() -> int:
     sharded_lk = phase_parallel(dev, clip)
     longvideo = phase_longvideo(dev)
     surface = phase_cli(dev, clip)
+    bench = phase_bench(dev, clip)
 
     k1_main = next(r for r in k1_rows if r.get("win") == 51 and r.get("cubic") and r.get("it0") == 0)
     k2_main = next(r for r in k2_rows if r["size"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     paths = {"lanes": lanes, "fast": fast, "sharded_lk": sharded_lk, "longvideo": longvideo,
-             **surface}
+             **surface, "bench": bench}
 
     def by_path(name):
         return {path: counts[name] for path, counts in paths.items()}
 
-    # launches: this slice's main path (the long-video runner) for K1 and
-    # K2; K3 runs only on the fast path
+    # launches: this slice's main path (the bench, scan mode: its warm-up and
+    # BENCH_REPS timed runs) for K1 and K2; K3 runs only on the fast path
     kernels = [
         {"name": "lk_block", "route": "cuda", "source": "velocity_tpu_torch/csrc/lk_block.cu",
          "replaces": "velocity_tpu/ops/lk_block_pallas.py:207",
-         "launches": longvideo["lk_block"], "launches_by_path": by_path("lk_block"),
+         "launches": bench["lk_block"], "launches_by_path": by_path("lk_block"),
          "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
          **{k: k1_main[k] for k in keys}, "library_ms": None},
         {"name": "extract_slabs", "route": "cuda", "source": "velocity_tpu_torch/csrc/slab.cu",
          "replaces": "velocity_tpu/ops/slab_pallas.py:107",
-         "launches": longvideo["extract_slabs"], "launches_by_path": by_path("extract_slabs"),
+         "launches": bench["extract_slabs"], "launches_by_path": by_path("extract_slabs"),
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
          **{k: k2_main[k] for k in keys}, "library_ms": k2_main["library_ms"]},
         {"name": "extract_patches", "route": "cuda",

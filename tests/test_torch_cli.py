@@ -9,7 +9,8 @@ the run-level tolerances of the other parity tests: speed within 0.5%,
 mean residual within 0.05 px. The port's command is held bit for bit to
 its own ``SpeedEstimator.run`` on the same file and draws. The parsers
 agree on subcommands, options, defaults and choices, except the port's
-``--device`` (``speed``, ``longvideo``, ``stills``).
+``--device`` (``speed``, ``longvideo``, ``stills``, ``bench``) and
+``bench``'s ``--clip`` and ``--mode`` (``bench_torch.py``).
 """
 
 import argparse
@@ -39,7 +40,10 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parent.parent
 N_FRAMES = 8
 SUBCOMMANDS = ["speed", "longvideo", "stills", "annotate", "vid2images", "bench"]
-PORT_ONLY = {"speed": ["--device"], "longvideo": ["--device"], "stills": ["--device"]}
+# the port's options absent from JAX's parser, with their defaults
+PORT_ONLY = {"speed": {"--device": "cuda"}, "longvideo": {"--device": "cuda"},
+             "stills": {"--device": "cuda"},
+             "bench": {"--device": "cuda", "--clip": "synthetic", "--mode": "scan"}}
 # the run-level parity tolerances (tests/test_torch_speedest.py)
 SPEED_RTOL, RESIDUAL_ATOL_PX = 5e-3, 0.05
 RANSAC_TRIALS = 1024  # TrackerConfig's default: the command line does not set it
@@ -118,10 +122,10 @@ def test_parsers_match_jax():
     port, jax = _surface(cli.build_parser()), _surface(_jax_parser())
     assert list(port) == list(jax) == SUBCOMMANDS
     for name in SUBCOMMANDS:
-        extra = {opt: port[name].pop(opt) for opt in PORT_ONLY.get(name, [])}
+        extra = {opt: port[name].pop(opt) for opt in PORT_ONLY.get(name, {})}
         assert port[name] == jax[name], name
         for opt, spec in extra.items():
-            assert opt not in jax[name] and spec[0] == "cuda", (name, opt)
+            assert opt not in jax[name] and spec[0] == PORT_ONLY[name][opt], (name, opt)
 
 
 def test_help_lists_the_subcommands(capsys):
@@ -214,11 +218,22 @@ def test_default_device_is_the_card(clip_file, command):
         cli.main(_speed_argv(clip_file, command))
 
 
-def test_bench_exits_nonzero_without_importing_bench(capsys):
+@pytest.mark.parametrize("flags", [[], ["--clip", "IMG_4119", "--mode", "frames",
+                                        "--device", "cpu"]])
+def test_bench_runs_bench_torch_main(monkeypatch, flags):
+    """``bench`` hands its flags (defaults filled in) to ``bench_torch.main``
+    and returns its exit code; JAX's ``bench.py`` is never imported."""
+    import bench_torch
+
     sys.modules.pop("bench", None)
-    assert cli.main(["bench"]) != 0
+    seen = []
+    monkeypatch.setattr(bench_torch, "main", lambda argv: seen.append(argv) or 3)
+    assert cli.main(["bench", *flags]) == 3
+    want = dict(zip(flags[::2], flags[1::2]))
+    assert seen == [["--clip", want.get("--clip", "synthetic"),
+                     "--mode", want.get("--mode", "scan"),
+                     "--device", want.get("--device", "cuda")]]
     assert "bench" not in sys.modules
-    assert "no bench script" in capsys.readouterr().err
 
 
 def test_vid2images_matches_jax(clip_file, tmp_path):

@@ -15,6 +15,8 @@ from velocity_tpu_torch.ops import lk_block_pallas, patch_pallas, slab_pallas
 ROOT = Path(__file__).resolve().parent.parent
 
 MODULES = [
+    "bench_ba_torch",
+    "bench_torch",
     "graft_entry_torch",
     "velocity_tpu_torch",
     "velocity_tpu_torch.camera.exif",
@@ -68,8 +70,8 @@ MODULES = [
 
 def test_import_pulls_in_no_jax():
     """A fresh interpreter that imports every port module (and the root
-    ``graft_entry_torch.py``) has no jax, jaxlib or velocity_tpu module
-    loaded."""
+    ``graft_entry_torch.py``, ``bench_torch.py`` and ``bench_ba_torch.py``)
+    has no jax, jaxlib or velocity_tpu module loaded."""
     code = ("import importlib, sys\n"
             f"for m in {MODULES!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules\n"

@@ -5,12 +5,13 @@
   python -m velocity_tpu_torch stills --images data/IMG_41*.JPG ...
   python -m velocity_tpu_torch annotate --video data/IMG_4238.MOV --corners x1,y1,...
   python -m velocity_tpu_torch vid2images --video V.MOV --out dir --step 10
-  python -m velocity_tpu_torch bench
+  python -m velocity_tpu_torch bench [--clip synthetic|IMG_4119] [--mode scan|frames]
 
 The flags, defaults and help of ``velocity_tpu/cli.py``, plus ``--device``
-on ``speed``, ``longvideo`` and ``stills`` (default "cuda"; "cpu" asks for
-the CPU; without a CUDA device the runners raise and the error goes
-through). ``cmd_*`` hand ``args.video`` / ``args.images`` /
+on ``speed``, ``longvideo``, ``stills`` and ``bench`` (default "cuda"; "cpu"
+asks for the CPU; without a CUDA device the runners raise and the error
+goes through), and ``bench``'s ``--clip`` and ``--mode``
+(``bench_torch.py``). ``cmd_*`` hand ``args.video`` / ``args.images`` /
 ``args.annotation`` to the runners as they are, so a caller may put a reader
 object or an ``Annotation`` there in place of a path.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+from pathlib import Path
 
 
 def _add_speed_args(sp):
@@ -171,13 +173,26 @@ def cmd_vid2images(args) -> int:
     return 0
 
 
+def add_bench_args(sp):
+    """The flags of ``bench`` (and of ``bench_torch.py`` itself)."""
+    sp.add_argument("--clip", default="synthetic", choices=["synthetic", "IMG_4119"],
+                    help="the clip to time (IMG_4119 raises where its video is absent)")
+    sp.add_argument("--mode", default="scan", choices=["scan", "frames"],
+                    help="the scan runner or the per-frame driver")
+    _add_device_arg(sp)
+
+
 def cmd_bench(args) -> int:
-    """The port has no bench script yet: say so and fail (the root
-    ``bench.py`` imports JAX and is not run)."""
-    print("velocity_tpu_torch bench: the port has no bench script yet (ROADMAP.md, "
-          "'Benchmark'); bench.py at the repository root times the JAX package.",
-          file=sys.stderr)
-    return 2
+    """Run ``bench_torch.py`` at the repository root with the flags given, as
+    JAX's ``bench`` runs ``bench.py``; imported here, so that importing the
+    CLI does not pull in the bench."""
+    root = str(Path(__file__).resolve().parent.parent)
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import bench_torch
+
+    return bench_torch.main(["--clip", args.clip, "--mode", args.mode,
+                             "--device", args.device])
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -239,6 +254,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.set_defaults(fn=cmd_vid2images)
 
     sp = sub.add_parser("bench", help="run the benchmark")
+    add_bench_args(sp)
     sp.set_defaults(fn=cmd_bench)
     return p
 

@@ -10,7 +10,8 @@ Every process runs the same program:
   3. the sharded solvers (``parallel/ba_dist.py``, ``parallel/windows.py``)
      run unchanged over that mesh: every process passes the same full
      arrays and runs its own shard, and the results come back whole on
-     every rank.
+     every rank; ``make_global`` cuts a host-replicated array into the
+     shards a process runs, each on its device.
 
 ``selftest_multiprocess()`` and ``selftest_multiprocess_windowed()`` check
 the whole path without a cluster: they spawn real OS processes that meet
@@ -73,6 +74,28 @@ def global_mesh(axis_sizes: dict[str, int] | None = None, process_axis: str = "p
     grid = np.empty(tuple(sizes.values()), dtype=object)
     grid.fill(dev)
     return Mesh(grid, tuple(sizes), process_axis=process_axis)
+
+
+def make_global(mesh, axis: str, value: np.ndarray, dim: int = 0) -> list:
+    """This process's shards of a host-replicated array (the counterpart of
+    ``velocity_tpu/parallel/launch.py:make_global``): every process passes
+    the same full ``value``; mesh axis ``axis`` cuts it into equal slices
+    along ``dim``, and each shard this process runs (one rank's of a
+    process axis, every shard of an in-process one) gets its slice as a
+    tensor on its device. Returns them in shard order."""
+    comm = mesh.axis(axis)
+    n = value.shape[dim]
+    if n % comm.size:
+        raise ValueError(f"dimension {dim} of size {n} not divisible by mesh axis "
+                         f"{axis!r} of size {comm.size}")
+    per = n // comm.size
+    index = [slice(None)] * value.ndim
+    out = []
+    for s in comm.indices:
+        index[dim] = slice(s * per, (s + 1) * per)
+        part = np.ascontiguousarray(value[tuple(index)])
+        out.append(torch.as_tensor(part).to(mesh.device(**{axis: s})))
+    return out
 
 
 def run_distributed_ba(problem, mesh=None, axis: str = "point", config=None):

@@ -15,9 +15,9 @@ Torch twin of ``velocity_tpu/pipeline/speedest.py``. Frame protocol:
 
 ``SpeedEstimator.run`` decodes, uploads and steps one frame at a time;
 ``ScanSpeedRunner`` (``pipeline/scan.py``) is the batch form of the same
-protocol and hands a clip whose tracking collapsed to this driver. The JAX
-package's transfer-lean fetch and packed summary vector answer its remote
-device link and are not carried over.
+protocol and hands a clip whose tracking collapsed to this driver. With
+``lean=True`` both read one packed summary per frame after the MSV frame
+(``tracker.pack_summary``) in place of the per-point history.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from velocity_tpu_torch.ops.harris import corner_subpix, good_features
 from velocity_tpu_torch.pipeline import report
 from velocity_tpu_torch.pipeline.roi import bounding_rect, inside_bbox
 from velocity_tpu_torch.pipeline.tracker import (
-    ThreeStageTracker, _track_fine_p, frame_pyramids, fused_frame_step_pyr)
+    ThreeStageTracker, _track_fine_p, frame_pyramids, fused_frame_step_pyr, pack_summary)
 from velocity_tpu_torch.solvers.pose import estimate_world_camera_pose
 
 F64 = torch.float64
@@ -313,9 +313,15 @@ class SpeedEstimator:
 
     # ------------------------------------------------------------------- run
     def run(self, video, annotation=None, n_frames=None, start_frame=None,
-            verbose=True, collect_images=True) -> RunResult:
+            verbose=True, collect_images=True, lean: bool = False) -> RunResult:
         """Run the pipeline over ``video`` (a path or a reader, see
-        ``open_reader``), one frame at a time."""
+        ``open_reader``), one frame at a time.
+
+        ``lean=True`` (the bench's run): each frame after the MSV frame is
+        read from the device as one packed summary (one copy in place of
+        five; a rescue reads what it reads); its track and reprojection
+        history is not recorded (NaN, ``valid`` False). The trajectory and
+        ``S[:, 2:]`` are those of ``lean=False`` where the solver is f32."""
         from velocity_tpu_torch.pipeline.anchor import reanchor
 
         cfg = self.config
@@ -380,13 +386,19 @@ class SpeedEstimator:
                     p_proj_frame = None
                 else:
                     (pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev,
-                     t, residuals, pproj_dev, _n2, _T23) = self._frame_step_with_fallback(
+                     t, residuals, pproj_dev, n2, _T23) = self._frame_step_with_fallback(
                         pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
                         p3, intr, gen, sdt, prev_gray, gray, t)
-                    vg = vg_dev.cpu().numpy()
-                    vp = vp_dev.cpu().numpy()
-                    p_proj_frame = pproj_dev.float().cpu().numpy()
-                    tnp = t.cpu().numpy().astype(np.float64)
+                    if lean and i > cfg.msv_frame:
+                        packed = pack_summary(t, residuals, vg_dev, n2).cpu().numpy()
+                        packed = packed.astype(np.float64)
+                        tnp, residuals, n_tracks = packed[0:3], packed[3], packed[4]
+                        vg = vp = p_proj_frame = None
+                    else:
+                        vg = vg_dev.cpu().numpy()
+                        vp = vp_dev.cpu().numpy()
+                        p_proj_frame = pproj_dev.float().cpu().numpy()
+                        tnp = t.cpu().numpy().astype(np.float64)
 
                     dt = B[i, 12] - B[i - 1, 12]
                     dr = float(np.linalg.norm(tnp + B[0, 0:3] - B[i - 1, 0:3]))
@@ -394,10 +406,12 @@ class SpeedEstimator:
                     B[i, 3:6] = tnp
                     B[i, 0:3] = B[0, 0:3] + tnp
 
-                track_px[i, vg] = pts_dev.cpu().numpy()[vg]
-                valid_hist[i] = vg
-                if p_proj_frame is not None:
-                    proj_px[i, vp] = p_proj_frame[vp]
+                if vg is not None:  # not in a lean run's steady state
+                    track_px[i, vg] = pts_dev.cpu().numpy()[vg]
+                    valid_hist[i] = vg
+                    n_tracks = float(vg.sum())
+                    if p_proj_frame is not None:
+                        proj_px[i, vp] = p_proj_frame[vp]
 
                 if i == cfg.msv_frame:
                     # scale transfer (once per video; host f64, see anchor.py)
@@ -429,7 +443,7 @@ class SpeedEstimator:
                     vp_dev = torch.as_tensor(vp, device=dev)
 
                 S[i, :] = (
-                    i, time.perf_counter() - tic, float(vg.sum()), float(residuals), dt,
+                    i, time.perf_counter() - tic, n_tracks, float(residuals), dt,
                     B[i, 12] - t0_time, dr, dist,
                     dr / dt * 3.6 if np.isfinite(dt) and dt > 0 else np.nan,
                 )

@@ -246,6 +246,15 @@ def fused_frame_step_pyr(
     return (pyr_cur, spyr_cur) + outs
 
 
+def pack_summary(t, residual_rms, vg, n2):
+    """One frame's packed summary, float32 (6,) on the step's device:
+    [t(3), residual_rms, live lanes, stage-2 survivors] (JAX's ``packed``,
+    ``velocity_tpu/pipeline/tracker.py:275-282``). A transfer-lean run
+    reads this one vector per frame in place of the per-point history."""
+    return torch.cat([t.float(), residual_rms.float().reshape(1),
+                      vg.sum().float().reshape(1), n2.float().reshape(1)])
+
+
 def fused_frame_step(
     im_prev,
     im_cur,

@@ -3,16 +3,105 @@
 Torch twin of ``velocity_tpu/utils/profiling.py``: structured per-stage
 wall-clock timers, and a ``torch.profiler`` trace context for device
 timelines (a Chrome trace, viewable in Perfetto or chrome://tracing).
+Beside them, what every card number is read against: the H100's published
+peaks, the least time they allow for a given work (``bound_ms``; a window
+gather's and a K1 block's), a kernel timer on CUDA events (``cuda_ms``),
+and the card's name and power limit as ``nvidia-smi`` reports them
+(``card``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
+import subprocess
 import time
 from collections import defaultdict
 from pathlib import Path
 
 import torch
+
+# Published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at its full
+# 700 W power limit): HBM3 bandwidth, and f32 outside the tensor cores
+H100_PEAK_BYTES_PER_S = 3.35e12
+H100_PEAK_F32_PER_S = 67e12
+
+
+def bound_ms(n_bytes: float, n_flops: float):
+    """(least milliseconds, "bytes" or "operations") the H100 needs to move
+    ``n_bytes`` and do ``n_flops`` f32 operations: the larger of the two
+    times at the published peaks."""
+    t_bytes = n_bytes / H100_PEAK_BYTES_PER_S * 1e3
+    t_ops = n_flops / H100_PEAK_F32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def window_index(x0, y0, size: int):
+    """(rows (N, size, 1), cols (N, 1, size)) of windows at corners (x0, y0)."""
+    ar = torch.arange(size, device=x0.device)
+    return ((y0.long()[:, None] + ar)[:, :, None], (x0.long()[:, None] + ar)[:, None, :])
+
+
+def gather_bound_ms(img, rows, cols, extra_bytes: int):
+    """Bound of a window gather (K2, K3) from ``img`` at the windows of
+    ``window_index``: the distinct pixels the windows cover, read once,
+    plus every output word written once and ``extra_bytes``."""
+    H, W = img.shape
+    covered = torch.zeros(H * W, dtype=torch.bool, device=img.device)
+    covered[(rows * W + cols).reshape(-1)] = True
+    n_out = rows.shape[0] * rows.shape[1] * cols.shape[2]
+    return bound_ms(4 * (int(covered.sum()) + n_out) + extra_bytes, 0)
+
+
+def k1_bound_ms(win: int, P: int, n_taps: int, n_active: int, n_points: int):
+    """Bound of one K1 block (``ops/lk_block_pallas.py:lk_block``) over
+    ``n_points`` points: those active on entry read their slab and three
+    windows; every point reads 12 and writes 5 f32 words. Operations per
+    active point and iteration: the x-pass over win+n_taps-1 rows and the
+    y-pass (one multiply-add per tap each) and the residual sums (5 per
+    window pixel)."""
+    from velocity_tpu_torch.ops.lk_block_pallas import BLOCK_ITERS
+
+    n_bytes = 4 * (n_active * (P * P + 3 * win * win) + n_points * (12 + 5))
+    per_iter = 2 * n_taps * win * (win + n_taps - 1) + 2 * n_taps * win * win + 5 * win * win
+    return bound_ms(n_bytes, n_active * BLOCK_ITERS * per_iter)
+
+
+def cuda_ms(fn, calls: int = 10, rounds: int = 5) -> float:
+    """Device milliseconds per ``fn()`` call: CUDA events around ``calls``
+    back-to-back calls, median over ``rounds``. A spin kernel runs first so
+    that the host queues the calls ahead of the device; where the host
+    still cannot keep up (the plain versions launch hundreds of small
+    kernels per call) the time includes their launch cost."""
+    fn()
+    torch.cuda.synchronize()
+    per_call = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        per_call.append(a.elapsed_time(b) / calls)
+    return statistics.median(per_call)
+
+
+def card_line() -> str:
+    """The first card's ``name, power.limit`` as ``nvidia-smi`` prints them
+    (e.g. "NVIDIA H100 80GB HBM3, 700.00 W"); raises where it cannot run."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def card() -> dict:
+    """{"name", "power_limit"} of the first card, from ``card_line``."""
+    name, power_limit = (v.strip() for v in card_line().rsplit(",", 1))
+    return {"name": name, "power_limit": power_limit}
 
 
 class StageTimer:
