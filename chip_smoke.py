@@ -8,8 +8,9 @@ sm_90a, one process per source; a K1 instantiation that spills fails),
 holds each kernel against its plain PyTorch version at the shapes of the
 main paths (K1 also at its edge cases and, with points up to and past the
 image's edges, at every pyramid level of a 4032x3024 still; K2 and K3 with
-corners past every side, K2 also on a still; each beside its launch floor,
-the same call at size 1), then
+corners past every side, K2 also on a still and on a stack of three 1080p
+frames, one launch for all, beside three 2-D launches; each beside its
+launch floor, the same call at size 1), then
 drives the paths below on a 1920x1080, 20-frame synthetic clip with the default
 widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 
@@ -34,12 +35,14 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
   GPS fix and a capture time per still: its kernels, speed, residual,
   the frames replenished and the lanes promoted, and the georegistration;
 - phase ``multivideo``: ``run_batch`` over three 1080p clips of 20 frames
-  (``render_lanes``; lane 0 is the clip above), then the three single scan
-  runner runs of the same clips: each lane and each single run against its
-  truth and the JAX CPU lane, lane 0's track history and launches against
-  its single run's, the batch's launches by lane, each MSV's
-  iterations, and the batch's warm wall beside the single runs' summed
-  walls, whole and less the host MSV;
+  (``render_lanes``; lane 0 is the clip above), one batched frame step per
+  frame for the three lanes, then the three single scan runner runs of the
+  same clips: each lane and each single run against its truth and the JAX
+  CPU lane, lane 0's track history against its single run's, the batch's
+  K1 and K2 launches against the largest single run's (at most
+  ``BATCH_LAUNCH_RATIO`` times), each MSV's iterations, and the batch's
+  warm wall beside the single runs' summed walls, whole and less the host
+  MSV;
 - phase ``parallel`` (in-process shards on the one card, axis sizes 1 and
   2): ``ba_schur_sharded`` against ``ba_schur`` at 20 cameras x 1024
   tracks, ``windowed_ba`` at 4 windows x 16 cameras x 1024 tracks with
@@ -154,6 +157,11 @@ BA_CG_GAUGE_TOL = 1e-2
 # (S, N) of every slab extraction on the lanes path: stages 1-2, stage-3
 # source, stage-3 backward destination, warped slabs, corner_subpix
 SLAB_SHAPES = ((24, 1024), (56, 1024), (64, 1024), (72, 1024), (27, 1020))
+# K2 on a stack (run_batch's batched step): lanes, sizes, points per lane
+SLAB_LANES, SLAB_BATCHED_SIZES = 3, (24, 72)
+# phase multivideo: the batch's K1 and K2 launches at most this many times
+# the largest single run's (one batched step per frame for all lanes)
+BATCH_LAUNCH_RATIO = 1.1
 K1_CONFIGS = ((15, 24, 8, False), (51, 64, 10, True), (51, 64, 8, False))
 K1_RTOL, K1_ATOL = 1e-5, 1e-4  # summation order and FMA contraction differ
 # Functions (module of velocity_tpu_torch.ops, name) whose device time each
@@ -311,6 +319,7 @@ def phase_k2(dev):
         corners = _corners_with_outsiders(g, H, W, S, N, lo=0)
         rows.append(_gather_case(f"K2 S={S}", k2.extract_slabs, k2.extract_slabs_ref, img,
                                  corners, S))
+    rows += _k2_batched(dev, g, img)
     still = torch.rand(STILLS_SIZE[::-1], generator=g, device=dev) * 255
     for label, im, lo in (("still padded by 72", _pad_edge(still, 72), 0),
                           ("unpadded still", still, None)):
@@ -320,6 +329,43 @@ def phase_k2(dev):
             _gather_check(f"K2 S={S} on the {label}", k2.extract_slabs, k2.extract_slabs_ref,
                           im, corners, S)
         print(f"K2 on the {label} ({H}x{W}), (S, N) {SLAB_SHAPES}: bit-equal, corners equal")
+    return rows
+
+
+def _k2_batched(dev, g, img):
+    """K2 on a stack of SLAB_LANES padded 1080p frames (``img`` and fresh
+    ones), N_POINTS points per frame, at SLAB_BATCHED_SIZES: one launch
+    against the plain version, bit-equal; its time beside the bound over
+    the frames' windows and beside one 2-D launch per frame."""
+    from velocity_tpu_torch.ops import slab_pallas as k2
+
+    imgs = torch.stack([img] + [torch.rand(img.shape, generator=g, device=dev) * 255
+                                for _ in range(SLAB_LANES - 1)])
+    H, W = img.shape
+    n = N_POINTS
+    lane = torch.arange(SLAB_LANES * n, device=dev) // n
+    rows = []
+    for S in SLAB_BATCHED_SIZES:
+        corners = torch.cat([_corners_with_outsiders(g, H, W, S, n, lo=0)
+                             for _ in range(SLAB_LANES)])
+        label = f"K2 batched V={SLAB_LANES} S={S}"
+        want_cl = _gather_check(label, k2.extract_slabs, k2.extract_slabs_ref, imgs, corners, S)
+        per_lane = [corners[v * n:(v + 1) * n].contiguous() for v in range(SLAB_LANES)]
+        r_idx, c_idx = _window_index(want_cl[:, 0], want_cl[:, 1], S)
+        ms = cuda_ms(lambda: k2.extract_slabs(imgs, corners, S))
+        lanes_ms = cuda_ms(lambda: [k2.extract_slabs(imgs[v], per_lane[v], S)
+                                    for v in range(SLAB_LANES)])
+        plain_ms = cuda_ms(lambda: k2.extract_slabs_ref(imgs, corners, S))
+        library_ms = cuda_ms(lambda: imgs[lane[:, None, None], r_idx, c_idx])
+        bound_ms, bound_by = _gather_bound(imgs, r_idx, c_idx, extra_bytes=16 * len(lane),
+                                           lane=lane)
+        print(f"{label} ({SLAB_LANES}x{H}x{W}, N={len(lane)}): bit-equal, corners equal; "
+              f"kernel {ms:.4f} ms, {SLAB_LANES} 2-D launches {lanes_ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, one gather call {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}); {bound_ms / ms:.0%} of the bound's rate")
+        rows.append(dict(label=label, size=S, N=len(lane), lanes=SLAB_LANES, max_abs_err=0.0,
+                         ms=ms, lanes_2d_ms=lanes_ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
     return rows
 
 
@@ -945,15 +991,17 @@ def phase_multivideo(dev, clip):
     each run's host MSV (the batch's MSV, the single runs' re-anchor), and
     each MSV's iterations and residual. Each run within the speed limits and
     within BATCH_RESIDUAL_VS_JAX_PX of JAX's residual on its lane; lane 0's
-    track history bit-equal to its single run's. The batch's launches are
-    counted lane by lane (each lane's frame-0 init and its segments) and
-    summed to the batch's count; lane 0, which draws from seed 0 as the
-    single runs do, launches what its single run launches. Lanes v > 0 draw
-    from seed v (JAX's run_batch draws lane v from PRNGKey(v)), so their
-    RANSAC hypotheses, and with them a few LK blocks, differ from their
-    single runs'."""
+    track history bit-equal to its single run's. A warm-up run_batch of
+    segment A alone (no host MSV) runs first, as the single runs come warm
+    from the earlier phases. run_batch steps all three
+    lanes at once (one batched frame step per frame, ``timings["lanes_path"]``
+    "batched"), so its K1 and K2 launches are at most BATCH_LAUNCH_RATIO
+    times the largest single run's, not their sum. Lanes v > 0 draw from
+    seed v (JAX's run_batch draws lane v from PRNGKey(v)), so their RANSAC
+    hypotheses, and with them a few LK blocks, differ from their single
+    runs'. Returns the batch's launches."""
     from velocity_tpu_torch.config import PipelineConfig, SolverConfig
-    from velocity_tpu_torch.pipeline.multivideo import run_batch
+    from velocity_tpu_torch.pipeline.multivideo import BATCHED, run_batch
     from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
     from velocity_tpu_torch.testing.synthetic_clip import render_lanes
 
@@ -964,41 +1012,22 @@ def phase_multivideo(dev, clip):
     cfg = PipelineConfig(solver=SolverConfig(dtype="float32"))
     runner = ScanSpeedRunner(cfg, device=dev)
     msv_batch, msv_single = [], []
-
-    from velocity_tpu_torch.pipeline import multivideo
-
-    per_lane = [dict.fromkeys(_counters(), 0) for _ in lanes]
-    inits = []
-
-    def counted(fn, lane_of):
-        def wrapper(*args, **kwargs):
-            before = _read_counts()[0]
-            out = fn(*args, **kwargs)
-            lane = per_lane[lane_of(args)]
-            for k, n in _read_counts()[0].items():
-                lane[k] += n - before[k]
-            return out
-        return wrapper
+    kw = dict(annotations=[c.annotation for c in lanes], config=cfg, device=dev, verbose=False)
+    t = time.perf_counter()
+    run_batch([c.reader for c in lanes], n_frames=cfg.msv_frame, **kw)  # warm-up: no MSV
+    print(f"multivideo: warm-up run_batch of frames 0..{cfg.msv_frame - 1} "
+          f"{time.perf_counter() - t:.3f} s")
 
     undo = _recording_msv(msv_batch)
-    real = multivideo.scan_segment, multivideo._init_features
-    multivideo.scan_segment = counted(real[0], lambda a: a[9].initial_seed())
-    def init_lane(args):  # run_batch initialises the lanes in order
-        inits.append(args)
-        return len(inits) - 1
-
-    multivideo._init_features = counted(real[1], init_lane)
     try:
         _reset_counts()
         t = time.perf_counter()
-        res = run_batch([c.reader for c in lanes], annotations=[c.annotation for c in lanes],
-                        n_frames=N_FRAMES, config=cfg, device=dev, verbose=False)
+        res = run_batch([c.reader for c in lanes], n_frames=N_FRAMES, **kw)
         torch.cuda.synchronize()
         wall_b = time.perf_counter() - t
         launches, _ = _read_counts()
     finally:
         undo()
-        multivideo.scan_segment, multivideo._init_features = real
     single, single_counts = [], []
     undo = _recording_msv(msv_single)
     try:
@@ -1012,15 +1041,16 @@ def phase_multivideo(dev, clip):
     wall_s = sum(r.timings["wall_s"] for r in single)
     msv_b = sum(r.timings["msv_s"] for r in res)
     msv_s = sum(r.timings["msv_s"] for r in single)
-    summed = {k: sum(c[k] for c in per_lane) for k in launches}
+    most = {k: max(c[k] for c in single_counts) for k in launches}
     cap = cfg.solver.max_iters_msv
     print(f"multivideo: run_batch of {len(lanes)} lanes x {N_FRAMES} frames warm wall "
           f"{wall_b:.3f} s, of it host MSV {msv_b:.3f} s, the rest {wall_b - msv_b:.3f} s; the "
           f"three single scan-runner runs {wall_s:.3f} s, of it re-anchor {msv_s:.3f} s, the "
-          f"rest {wall_s - msv_s:.3f} s (in turns: batch, then singles); launches K1 "
-          f"{launches['lk_block']} K2 {launches['extract_slabs']}, by lane K1 "
-          f"{[c['lk_block'] for c in per_lane]} K2 {[c['extract_slabs'] for c in per_lane]}; "
-          f"the single runs' K1 {[c['lk_block'] for c in single_counts]} K2 "
+          f"rest {wall_s - msv_s:.3f} s (in turns: batch, then singles); the rest's ratio "
+          f"{(wall_b - msv_b) / (wall_s - msv_s):.3f}; path {res[0].timings['lanes_path']}; "
+          f"launches K1 "
+          f"{launches['lk_block']} K2 {launches['extract_slabs']}; the single runs' K1 "
+          f"{[c['lk_block'] for c in single_counts]} K2 "
           f"{[c['extract_slabs'] for c in single_counts]}")
     if len(msv_batch) != len(lanes) or len(msv_single) != len(lanes):
         raise AssertionError(f"multivideo: {len(msv_batch)} batch and {len(msv_single)} single "
@@ -1039,14 +1069,20 @@ def phase_multivideo(dev, clip):
                    jax_kmh, limit)
         _check_run(f"multivideo single run {v}", s, c, single_counts[v],
                    ("lk_block", "extract_slabs"), jax_kmh, limit)
-    if summed != launches or per_lane[0] != single_counts[0]:
-        raise AssertionError(f"multivideo: launches {launches}, by lane {per_lane}, lane 0's "
-                             f"single run {single_counts[0]}")
+    if res[0].timings["lanes_path"] != BATCHED:
+        raise AssertionError(f"multivideo: run_batch took the {res[0].timings['lanes_path']} "
+                             f"path, not the batched one")
+    over = {k: (launches[k], most[k]) for k in ("lk_block", "extract_slabs")
+            if launches[k] > BATCH_LAUNCH_RATIO * most[k]}
+    if over:
+        raise AssertionError(f"multivideo: batch launches above {BATCH_LAUNCH_RATIO} x the "
+                             f"largest single run's (batch, single): {over}")
     same = (np.array_equal(res[0].track_px, single[0].track_px, equal_nan=True)
             and np.array_equal(res[0].valid, single[0].valid))
     print(f"multivideo: lane 0's track history bit-equal to the single run's: {same}")
     if not same:
         raise AssertionError("multivideo: lane 0's tracks differ from the single scan runner's")
+    return launches
 
 
 def _rel(a, b) -> float:
@@ -1488,7 +1524,7 @@ def main() -> int:
     phase_ba(dev, clip)
     phase_ba_solvers(dev)
     phase_stills(dev)
-    phase_multivideo(dev, clip)
+    multivideo = phase_multivideo(dev, clip)
     sharded_lk = phase_parallel(dev, clip)
     longvideo = phase_longvideo(dev)
     surface = phase_cli(dev, clip)
@@ -1498,7 +1534,8 @@ def main() -> int:
     k2_main = next(r for r in k2_rows if r["size"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    paths = {"lanes": lanes, "fast": fast, "sharded_lk": sharded_lk, "longvideo": longvideo,
+    paths = {"lanes": lanes, "fast": fast, "multivideo": multivideo, "sharded_lk": sharded_lk,
+             "longvideo": longvideo,
              **surface, "bench": bench}
 
     def by_path(name):
@@ -1516,7 +1553,10 @@ def main() -> int:
          "replaces": "velocity_tpu/ops/slab_pallas.py:107",
          "launches": bench["extract_slabs"], "launches_by_path": by_path("extract_slabs"),
          "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
-         **{k: k2_main[k] for k in keys}, "library_ms": k2_main["library_ms"]},
+         **{k: k2_main[k] for k in keys}, "library_ms": k2_main["library_ms"],
+         "batched": [{k: r[k] for k in ("lanes", "size", "N", "ms", "lanes_2d_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")}
+                     for r in k2_rows if "lanes" in r]},
         {"name": "extract_patches", "route": "cuda",
          "source": "velocity_tpu_torch/csrc/patch.cu",
          "replaces": "velocity_tpu/ops/patch_pallas.py:62",

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the window gather's time goes (K2 and K3), on one NVIDIA GPU.
 
-    python3 scripts/gather_ablate.py
+    python3 scripts/gather_ablate.py [--against DIR]
 
 Builds variants of ``velocity_tpu_torch/csrc/window.cuh`` into
 ``build/gather_ablate/`` (one nvcc process each, all started together) and
@@ -36,12 +36,17 @@ The cuts, which compute wrong answers and are not checked:
 - ``no stores``: the window loads without its stores.
 - ``no loads``: the window stores (zeros) without its loads.
 
+``--against DIR`` adds one more variant, ``DIR``'s own ``window.cuh`` and
+``slab.cu`` as they are (another checkout's ``velocity_tpu_torch/csrc``),
+so that two versions of the gather are timed in turns in one run.
+
 Variants and cuts exist only for this measurement; the committed gather is
 the one the package builds.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import subprocess
 import sys
@@ -113,8 +118,9 @@ extern "C" int vt_extract_slabs(const float* img, int H, int W, const int* corne
 """
 
 
-def build_variants() -> dict:
-    """{variant: vt_extract_slabs of its library}."""
+def build_variants(against: Path | None = None) -> dict:
+    """{variant: vt_extract_slabs of its library}; ``against``, a csrc
+    directory whose gather is built as it is."""
     header = (cuda_build.SRC_DIR / "window.cuh").read_text()
     entry = (cuda_build.SRC_DIR / "slab.cu").read_text()
     OUT.mkdir(parents=True, exist_ok=True)
@@ -128,6 +134,9 @@ def build_variants() -> dict:
             text = text.replace(old, new)
         sources[name] = (text, entry)
     sources["block per point"] = (None, BLOCK_PER_POINT)
+    if against is not None:
+        sources[f"{against}"] = ((against / "window.cuh").read_text(),
+                                 (against / "slab.cu").read_text())
     for i, (name, (hdr, cu_text)) in enumerate(sources.items()):
         d = OUT / f"v{i}"
         d.mkdir(exist_ok=True)
@@ -182,12 +191,16 @@ def _cases(dev):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", type=Path, default=None,
+                        help="a csrc directory whose gather is timed beside the committed one")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("gather_ablate: no CUDA device", file=sys.stderr)
         return 1
     smi = chip_smoke.phase_device()
     committed = cuda_build.library()
-    fns = {"committed": committed.vt_extract_slabs, **build_variants()}
+    fns = {"committed": committed.vt_extract_slabs, **build_variants(args.against)}
     dev = torch.device("cuda")
     try:
         for label, img, corners, size in _cases(dev):

@@ -2,12 +2,15 @@
 """Per-stage times of one lanes frame step of the PyTorch/CUDA port on the
 synthetic 1080p pair (twin of ``scripts/profile_stages_amortized.py``).
 
-    python3 scripts/profile_stages_torch.py [--device cuda|cpu]
+    python3 scripts/profile_stages_torch.py [--device cuda|cpu] [--lanes V]
 
 Frame 0 and frame 1 of the seed-0 1920x1080 clip
 (``velocity_tpu_torch/testing/synthetic_clip.py``), the default
 configuration with the f32 solver; frame 0 initialised as the runners do.
-Each stage runs from the same inputs:
+With ``--lanes V`` (1 to 3), the step of ``run_batch``'s batched segment
+over the first V clips of ``render_lanes`` (seeds 0/1/2 at 40/30/50
+km/h, two frames each), one lane axis on every input. Each stage runs
+from the same inputs:
 
 - ``pyramids``: ``frame_pyramids`` of frame 1 (full and quarter scale);
 - ``stages 1+2``: ``_track_stages_p``, the coarse LK, RANSAC, the
@@ -43,30 +46,45 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 REPS, ROUNDS = 10, 5
 
 
-def _inputs(dev):
-    from velocity_tpu_torch.config import PipelineConfig, SolverConfig
+def _lane_inputs(dev, cfg, clip, seed):
+    """One lane's tensors: frames 0 and 1, frame 0 initialised."""
     from velocity_tpu_torch.pipeline.roi import inside_bbox
     from velocity_tpu_torch.pipeline.speedest import _init_features, _init_geometry
-    from velocity_tpu_torch.pipeline.tracker import frame_pyramids
-    from velocity_tpu_torch.testing.synthetic_clip import render_clip
 
-    clip = render_clip(n_frames=2, seed=0)
-    cfg = PipelineConfig(solver=SolverConfig(dtype="float32"))
     cam, scale = clip.reader.info, cfg.native_scale
     q = clip.annotation.q * scale
     im0, im1 = (torch.as_tensor(g).to(dev) for g in clip.reader.grays[:2])
     p, valid, boxa, _ = _init_features(cfg, im0, q)
     t0, p3, _ = _init_geometry(cfg, cam, q, p, valid, scale)
-    pyr0, spyr0 = frame_pyramids(im0, cfg.tracker)
-    pyr1, spyr1 = frame_pyramids(im1, cfg.tracker)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    return dict(cfg=cfg, im1=im1, pyr0=pyr0, spyr0=spyr0, pyr1=pyr1, spyr1=spyr1,
-                pts=torch.as_tensor(p, device=dev), vg=torch.as_tensor(valid, device=dev),
+    gen.manual_seed(seed)
+    return dict(im0=im0, im1=im1, pts=torch.as_tensor(p, device=dev),
+                vg=torch.as_tensor(valid, device=dev),
                 vp=torch.as_tensor(valid & inside_bbox(p, boxa), device=dev),
                 p3=torch.as_tensor(p3, dtype=torch.float32, device=dev),
                 t0=torch.as_tensor(t0, dtype=torch.float32, device=dev),
                 intr=cam.intrinsics(scale=scale).to(dtype=torch.float32, device=dev), gen=gen)
+
+
+def _inputs(dev, lanes: int = 0):
+    """The step's inputs for one clip (``lanes`` 0), or stacked over the
+    first ``lanes`` clips of ``render_lanes``."""
+    from velocity_tpu_torch.config import PipelineConfig, SolverConfig
+    from velocity_tpu_torch.geometry.projection import Intrinsics
+    from velocity_tpu_torch.pipeline.tracker import frame_pyramids
+    from velocity_tpu_torch.testing.synthetic_clip import BATCH_LANES, render_clip
+
+    cfg = PipelineConfig(solver=SolverConfig(dtype="float32"))
+    if not lanes:
+        x = _lane_inputs(dev, cfg, render_clip(n_frames=2, seed=0), 1)
+    else:
+        xs = [_lane_inputs(dev, cfg, render_clip(n_frames=2, seed=seed, speed_kmh=kmh), v)
+              for v, (seed, kmh) in enumerate(BATCH_LANES[:lanes])]
+        x = {k: torch.stack([l[k] for l in xs]) for k in xs[0] if k not in ("intr", "gen")}
+        x.update(intr=Intrinsics.stack([l["intr"] for l in xs]), gen=[l["gen"] for l in xs])
+    x.update(zip(("pyr0", "spyr0"), frame_pyramids(x.pop("im0"), cfg.tracker)))
+    x.update(zip(("pyr1", "spyr1"), frame_pyramids(x["im1"], cfg.tracker)))
+    return dict(cfg=cfg, **x)
 
 
 def _stages(x):
@@ -79,7 +97,7 @@ def _stages(x):
     T23, _ = _track_stages_p(x["pyr0"], x["pyr1"], x["spyr0"], x["spyr1"], x["pts"], x["vg"],
                              x["gen"], tc)
     p_new, vg_new = _track_fine_p(x["pyr0"], x["pyr1"], x["pts"], x["vg"], T23, tc)
-    eye = torch.eye(3, dtype=torch.float32, device=x["pts"].device)
+    eye = torch.eye(3, dtype=torch.float32, device=x["im1"].device)
     return {
         "pyramids": lambda: frame_pyramids(x["im1"], tc),
         "stages 1+2": lambda: _track_stages_p(x["pyr0"], x["pyr1"], x["spyr0"], x["spyr1"],
@@ -107,11 +125,11 @@ def _kernel_time(fn):
     return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
 
 
-def profile_stages(dev) -> list:
+def profile_stages(dev, lanes: int = 0) -> list:
     from velocity_tpu_torch.utils.profiling import StageTimer
 
     rows = []
-    for name, fn in _stages(_inputs(dev)).items():
+    for name, fn in _stages(_inputs(dev, lanes)).items():
         fn()  # warm
         timer, events = StageTimer(), []
         for _ in range(ROUNDS):
@@ -144,11 +162,15 @@ def main(argv=None) -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--device", default="cuda")
-    dev = require_device(parser.parse_args(argv).device, "profile_stages_torch")
-    rows = profile_stages(dev)
+    parser.add_argument("--lanes", type=int, default=0,
+                        help="profile the batched step of run_batch over this many clips")
+    args = parser.parse_args(argv)
+    dev = require_device(args.device, "profile_stages_torch")
+    rows = profile_stages(dev, args.lanes)
     if dev.type == "cuda":
         print(card_line())
-    print(json.dumps({"device": dev.type, "reps": REPS, "rounds": ROUNDS, "rows": rows}))
+    print(json.dumps({"device": dev.type, "lanes": args.lanes, "reps": REPS, "rounds": ROUNDS,
+                      "rows": rows}))
     return 0
 
 

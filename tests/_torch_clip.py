@@ -129,6 +129,21 @@ def _inject(monkeypatch, draws):
     monkeypatch.setattr(port_tracker, "estimate_affine_ransac", ransac_with_jax_noise)
 
 
+def _inject_lanes(monkeypatch, draws):
+    """Hand the port's RANSAC the given noise per lane: ``draws[v]`` is lane
+    v's list in its own order. A call with a lane axis (V, N, 2) takes the
+    next draw of each of lanes 0..V-1; a call without one, lane 0's."""
+    real_ransac = port_tracker.estimate_affine_ransac
+
+    def ransac_with_jax_noise(src, *args, **kwargs):
+        lanes = range(src.shape[0]) if src.dim() == 3 else [0]
+        noise = [draws[v].pop(0) for v in lanes]
+        kwargs["gumbel"] = torch.stack(noise) if src.dim() == 3 else noise[0]
+        return real_ransac(src, *args, **kwargs)
+
+    monkeypatch.setattr(port_tracker, "estimate_affine_ransac", ransac_with_jax_noise)
+
+
 class _JaxStillsReader:
     """A stills burst (``SyntheticClip.stills()``) behind the JAX package's
     StillsReader interface."""

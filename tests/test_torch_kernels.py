@@ -313,13 +313,17 @@ _GATHERS = {"k2": k2.extract_slabs, "k3": k3.extract_patches}
 def test_window_wrappers_refuse_bad_inputs(kernel):
     """K2's and K3's wrappers refuse a wrong dtype, shape or size, a
     non-contiguous image or corners, corners on another device, and a
-    device that is neither the CPU nor CUDA."""
+    device that is neither the CPU nor CUDA. K2 takes a stack of images
+    (V, H, W) whose count divides the points' (K3 no stack): a stack of two
+    for three points is refused."""
     fn = _GATHERS[kernel]
     img = torch.zeros((40, 50))
     c = torch.zeros((3, 2), dtype=torch.int32)
-    bad = ((img.double(), c, 8), (img, c.long(), 8), (img, c[:, :1], 8), (img[None], c, 8),
-           (img.t(), c, 8), (img, c.t().contiguous().t(), 8), (img, c.reshape(-1), 8),
-           (img, c, 41), (img, c, 0), (img, c.to("meta"), 8), (img.to("meta"), c, 8))
+    stack = torch.zeros((2, 40, 50)) if kernel == "k2" else img[None]
+    bad = ((img.double(), c, 8), (img, c.long(), 8), (img, c[:, :1], 8), (stack, c, 8),
+           (img[None, None], c, 8), (img.t(), c, 8), (img, c.t().contiguous().t(), 8),
+           (img, c.reshape(-1), 8), (img, c, 41), (img, c, 0), (img, c.to("meta"), 8),
+           (img.to("meta"), c, 8))
     for bad_img, bad_c, size in bad:
         with pytest.raises(ValueError):
             fn(bad_img, bad_c, size)
@@ -352,6 +356,35 @@ def test_k2_matches_plain_on_card(cuda_device, S):
     want, want_c = k2.extract_slabs_ref(img, corners, S)
     assert torch.equal(got_c, want_c)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [24, 72])
+def test_k2_batched_matches_plain_on_card(cuda_device, S):
+    """K2 on a stack of three padded 1080p frames, 1024 points per frame
+    (point i from frame i // 1024), corners inside and past every side: one
+    launch, bit-equal to its plain version, and each frame's points to a
+    2-D launch on that frame."""
+    V, n = 3, 1024
+    imgs = torch.stack([torch.as_tensor(_slab_image(H=1080 + 2 * 72, W=1920 + 2 * 72, seed=v))
+                        for v in range(V)]).to(cuda_device)
+    H, W = imgs.shape[1:]
+    g = torch.Generator(device=cuda_device).manual_seed(S)
+    corners = torch.stack([
+        torch.randint(-S, W + 1, (V * n,), generator=g, device=cuda_device),
+        torch.randint(-S, H + 1, (V * n,), generator=g, device=cuda_device),
+    ], dim=1).to(torch.int32)
+    before = k2.extract_slabs.launches
+    got, got_c = k2.extract_slabs(imgs, corners, S)
+    torch.cuda.synchronize()
+    assert k2.extract_slabs.launches == before + 1
+    want, want_c = k2.extract_slabs_ref(imgs, corners, S)
+    assert torch.equal(got_c, want_c)
+    assert torch.equal(got, want)
+    for v in range(V):
+        one, one_c = k2.extract_slabs(imgs[v], corners[v * n:(v + 1) * n].contiguous(), S)
+        assert torch.equal(got[v * n:(v + 1) * n], one)
+        assert torch.equal(got_c[v * n:(v + 1) * n], one_c)
 
 
 # (H, W, size, N) at the gather's edges: one point, a ragged last block

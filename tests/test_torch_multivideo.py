@@ -6,9 +6,9 @@ Lanes: the clip of ``test_torch_slice.py`` (seed 0, 40 km/h) and seed 1 at
 solver. (At 30 km/h the MSV baseline of these small clips is too short:
 ``msv_refine_translation`` stalls in both packages, the stall of
 ``ROADMAP.md`` §3.) JAX decodes the clips through a patched VideoReader; the
-port is handed lane v's RANSAC noise from PRNGKey(v), in the order its loop
-over lanes draws it (segment A lane by lane, then segment B lane by lane).
-The scan runner, handed lane 0's noise, is the single run lane 0 must
+port is handed lane v's RANSAC noise from PRNGKey(v), frame by frame (its
+batched step draws stage 1 of every lane, then stage 2 of every lane). The
+scan runner, handed lane 0's noise, is the single run lane 0 must
 reproduce.
 """
 
@@ -17,8 +17,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from _torch_clip import (HEIGHT, MSV, N_FRAMES, SCALE, WIDTH, _cfg, _inject, _jax_gumbel,
-                         _JaxReader, _jcfg, _no_native_loader, make_clip)
+from _torch_clip import (HEIGHT, MSV, N_FRAMES, SCALE, WIDTH, _cfg, _inject, _inject_lanes,
+                         _jax_gumbel, _JaxReader, _jcfg, _no_native_loader, make_clip)
 
 import velocity_tpu.ingest.native_loader as jax_native_loader
 import velocity_tpu.pipeline.datasets as jax_datasets
@@ -80,24 +80,38 @@ def jax_batch(clips, tmp_path_factory):
     return res, calls
 
 
-def _batch_draws(n_lanes):
-    """Lane v's noise from PRNGKey(v) in the port's order: segment A lane
-    by lane, then segment B lane by lane."""
-    a = [g for v in range(n_lanes) for g in _jax_gumbel(N_FRAMES, v, range(1, MSV + 1))[1]]
-    b = [g for v in range(n_lanes) for g in _jax_gumbel(N_FRAMES, v, range(MSV + 1, N_FRAMES))[1]]
-    return a + b
+def _segment_recorder(mp):
+    """Patch run_batch's ``scan_segment`` to record, per call, the lanes it
+    stepped together (0 for a call without a lane axis) and each lane's
+    generator (seed, device). Returns the list of records."""
+    import velocity_tpu_torch.pipeline.multivideo as port_multivideo
+
+    real_segment, calls = port_multivideo.scan_segment, []
+
+    def recording_segment(*args):
+        pts0, gens = args[3], args[9]
+        lanes = pts0.shape[0] if pts0.dim() == 3 else 0
+        calls.append((lanes, [(g.initial_seed(), g.device)
+                              for g in (gens if lanes else [gens])]))
+        return real_segment(*args)
+
+    mp.setattr(port_multivideo, "scan_segment", recording_segment)
+    return calls
 
 
 @pytest.fixture(scope="module")
 def port_batch(clips):
-    """The port's run_batch on the CPU with JAX's noise."""
+    """The port's run_batch on the CPU with JAX's noise (lane v's from
+    PRNGKey(v), frame by frame), with its segment calls recorded. Returns
+    (results, calls)."""
     with pytest.MonkeyPatch.context() as mp:
-        draws = _batch_draws(len(clips))
-        _inject(mp, draws)
+        draws = [_jax_gumbel(N_FRAMES, v)[1] for v in range(len(clips))]
+        _inject_lanes(mp, draws)
+        calls = _segment_recorder(mp)
         out = run_batch([c.reader for c in clips], annotations=_annotations(clips),
                         n_frames=N_FRAMES, config=_cfg(), device="cpu", verbose=False)
-        assert not draws
-    return out
+        assert not any(draws)
+    return out, calls
 
 
 @pytest.fixture(scope="module")
@@ -117,7 +131,7 @@ def test_run_batch_matches_jax(clips, jax_batch, port_batch):
     lane, its translations within 1e-3 relative, equal validity on >= 99%
     of the track history; each lane within 15% of its truth."""
     want, _ = jax_batch
-    got = port_batch
+    got, _ = port_batch
     assert len(got) == len(want) == 2
     for g, w, c in zip(got, want, clips):
         assert g.S.shape == w.S.shape == (N_FRAMES, 9)
@@ -153,7 +167,7 @@ def test_lane0_is_the_scan_runner(port_batch, scan_run):
     and stats-table counts are the scan runner's bit for bit (the scan
     runner's re-anchor re-solves the pose rows that run_batch's MSV keeps,
     so the speeds agree only to 2%)."""
-    lane0, want = port_batch[0], scan_run
+    lane0, want = port_batch[0][0], scan_run
     np.testing.assert_array_equal(lane0.track_px, want.track_px)
     np.testing.assert_array_equal(lane0.valid, want.valid)
     np.testing.assert_array_equal(lane0.S[:, 2], want.S[:, 2])
@@ -165,25 +179,55 @@ def test_lane0_is_the_scan_runner(port_batch, scan_run):
 def test_mesh_of_two_devices_equals_one(clips, monkeypatch):
     """mesh=[cpu, cpu] puts lane v on mesh[v % 2]: the same results as one
     device (segment A only, to keep it short); lane v's generator is seeded
-    v on its lane's device."""
-    import velocity_tpu_torch.pipeline.multivideo as port_multivideo
-
-    real_segment, seeds = port_multivideo.scan_segment, []
-
-    def recording_segment(*args):
-        seeds.append((args[9].initial_seed(), args[9].device))
-        return real_segment(*args)
-
-    monkeypatch.setattr(port_multivideo, "scan_segment", recording_segment)
+    v on its lane's device. Each mesh device steps its own lanes (one each
+    here) in its own batched segment; one device steps both in one."""
+    calls = _segment_recorder(monkeypatch)
     cpu = torch.device("cpu")
     kw = dict(annotations=_annotations(clips), n_frames=MSV, config=_cfg(), verbose=False)
     got = run_batch([c.reader for c in clips], mesh=[cpu, cpu], **kw)
+    assert calls == [(1, [(0, cpu)]), (1, [(1, cpu)])]
     want = run_batch([c.reader for c in clips], device="cpu", **kw)
-    assert seeds == [(0, cpu), (1, cpu)] * 2
+    assert calls[2:] == [(2, [(0, cpu), (1, cpu)])]
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(g.B, w.B)
         np.testing.assert_array_equal(g.track_px, w.track_px)
         np.testing.assert_array_equal(g.S[:, 2:], w.S[:, 2:])
+
+
+def test_run_batch_steps_all_lanes_of_a_device_at_once(port_batch):
+    """The lanes backend runs each segment as one batched call per device:
+    on the one CPU, segment A and segment B each step both lanes together
+    (lane v drawing from its generator seeded v), not one call per lane;
+    ``timings`` names the path."""
+    results, calls = port_batch
+    cpu = torch.device("cpu")
+    assert calls == [(2, [(0, cpu), (1, cpu)])] * 2
+    for r in results:
+        assert r.timings["lanes_path"] == "batched"
+
+
+def test_fast_backend_keeps_the_lane_loop(clips, monkeypatch):
+    """``lk_backend="fast"`` has no lane axis: run_batch runs its segments
+    lane by lane (segment A only here), lane v from its generator seeded v,
+    and ``timings`` says so."""
+    calls = _segment_recorder(monkeypatch)
+    cpu = torch.device("cpu")
+    got = run_batch([c.reader for c in clips], annotations=_annotations(clips), n_frames=MSV,
+                    config=_cfg("fast"), device="cpu", verbose=False)
+    assert calls == [(0, [(0, cpu)]), (0, [(1, cpu)])]
+    for r, c in zip(got, clips, strict=True):
+        assert r.timings["lanes_path"] == "lane loop"
+        assert np.isfinite(r.B[:, 3:6]).all() and r.valid[1:].sum() > 0
+
+
+def test_batched_lanes_need_one_frame_size(clips):
+    """The lanes of one device are stepped as one stack, so their frames
+    must share a size: clips of two sizes on one device raise."""
+    other = render_clip(n_frames=2, width=WIDTH // 2, height=HEIGHT // 2, seed=1)
+    with pytest.raises(ValueError, match="one size"):
+        run_batch([clips[0].reader, other.reader],
+                  annotations=[clips[0].annotation, other.annotation], n_frames=2,
+                  config=_cfg(), device="cpu", verbose=False)
 
 
 def test_collapsed_lane_is_rescued_by_the_driver(clips):

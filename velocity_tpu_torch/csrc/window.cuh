@@ -36,6 +36,11 @@
 //   map would be encoded on the host for every call, on a host-bound path;
 //   and TMA's 16-byte rules on the box width and the row pitch exclude S 27,
 //   34, 70, 82 and a 34-wide padded top level.
+// - A stack of V equal-sized images (V, H, W) takes one launch for all its
+//   points (kBatched): point i reads image i / n_per_image, the lane-major
+//   layout of the JAX package's vmap over videos. The corner thread adds
+//   the image's offset to the window offset it leaves in shared memory; the
+//   clamp stays per image. Single images compile without that division.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,10 +50,11 @@ namespace {
 constexpr int kWordsPerThread = 16;  // output words a thread takes, in whole points
 constexpr int kUnroll = 4;           // loads a thread keeps in flight before storing
 
-template <int T, int V, bool kSplitRows>
+template <int T, int V, bool kSplitRows, bool kBatched>
 __global__ void __launch_bounds__(T)
 gather_windows(const float* __restrict__ img, int H, int W, const int* __restrict__ corners,
-               int N, int S, int ppb, float* __restrict__ out, int* __restrict__ cl) {
+               int N, int S, int ppb, int n_per_image, float* __restrict__ out,
+               int* __restrict__ cl) {
   __shared__ long long base[T];  // image offset of each point's window
   const int t = threadIdx.x;
   const int n0 = blockIdx.x * ppb;
@@ -73,7 +79,9 @@ gather_windows(const float* __restrict__ img, int H, int W, const int* __restric
     y0 = min(max(y0, 0), H - S);
     cl[2 * (n0 + t)] = x0;
     cl[2 * (n0 + t) + 1] = y0;
-    base[t] = (long long)y0 * W + x0;
+    long long off = (long long)y0 * W + x0;
+    if constexpr (kBatched) off += (long long)((n0 + t) / n_per_image) * H * W;
+    base[t] = off;
   }
   __syncthreads();
 
@@ -121,22 +129,35 @@ gather_windows(const float* __restrict__ img, int H, int W, const int* __restric
   }
 }
 
-template <int T>
+template <int T, bool kBatched>
 void launch_gather(const float* img, int H, int W, const int* corners, int N, int S,
-                   float* out, int* cl, cudaStream_t stream) {
+                   int n_per_image, float* out, int* cl, cudaStream_t stream) {
   const int ppb = max(1, min(T, kWordsPerThread * T / (S * S)));
   const int blocks = (N + ppb - 1) / ppb;
   const bool vec = S % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   if (vec && S % 4 == 0) {
-    gather_windows<T, 4, false><<<blocks, T, 0, stream>>>(img, H, W, corners, N, S, ppb, out,
-                                                          cl);
+    gather_windows<T, 4, false, kBatched><<<blocks, T, 0, stream>>>(
+        img, H, W, corners, N, S, ppb, n_per_image, out, cl);
   } else if (vec) {
-    gather_windows<T, 4, true><<<blocks, T, 0, stream>>>(img, H, W, corners, N, S, ppb, out,
-                                                         cl);
+    gather_windows<T, 4, true, kBatched><<<blocks, T, 0, stream>>>(
+        img, H, W, corners, N, S, ppb, n_per_image, out, cl);
   } else {
-    gather_windows<T, 1, false><<<blocks, T, 0, stream>>>(img, H, W, corners, N, S, ppb, out,
-                                                          cl);
+    gather_windows<T, 1, false, kBatched><<<blocks, T, 0, stream>>>(
+        img, H, W, corners, N, S, ppb, n_per_image, out, cl);
   }
+}
+
+template <bool kBatched>
+int launch_gather_any(const float* img, int H, int W, const int* corners, int N, int S,
+                      int n_per_image, float* out, int* cl, cudaStream_t stream) {
+  if (S < 1 || S > H || S > W) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  if (S <= 32) {
+    launch_gather<128, kBatched>(img, H, W, corners, N, S, n_per_image, out, cl, stream);
+  } else {
+    launch_gather<256, kBatched>(img, H, W, corners, N, S, n_per_image, out, cl, stream);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Gathers N windows of size S at `corners` (N, 2) xy into `out` (N, S, S)
@@ -144,14 +165,18 @@ void launch_gather(const float* img, int H, int W, const int* corners, int N, in
 // min(H, W). Returns the launch's cudaError_t.
 int launch_gather_windows(const float* img, int H, int W, const int* corners, int N, int S,
                           float* out, int* cl, cudaStream_t stream) {
-  if (S < 1 || S > H || S > W) return (int)cudaErrorInvalidValue;
-  if (N <= 0) return 0;
-  if (S <= 32) {
-    launch_gather<128>(img, H, W, corners, N, S, out, cl, stream);
-  } else {
-    launch_gather<256>(img, H, W, corners, N, S, out, cl, stream);
-  }
-  return (int)cudaGetLastError();
+  return launch_gather_any<false>(img, H, W, corners, N, S, N, out, cl, stream);
+}
+
+// The same over a contiguous stack `img` (V, H, W): point i's window comes
+// from image i / n_per_image, clamped into that image. Needs N == V *
+// n_per_image.
+int launch_gather_windows_batched(const float* img, int V, int H, int W, const int* corners,
+                                  int N, int n_per_image, int S, float* out, int* cl,
+                                  cudaStream_t stream) {
+  if (V < 1 || n_per_image < 0 || (long long)V * n_per_image != N)
+    return (int)cudaErrorInvalidValue;
+  return launch_gather_any<true>(img, H, W, corners, N, S, n_per_image, out, cl, stream);
 }
 
 }  // namespace

@@ -32,6 +32,7 @@ _F = ctypes.c_float
 # masks (trackable, done in, done out) point at torch.bool bytes.
 SIGNATURES = {
     "vt_extract_slabs": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
+    "vt_extract_slabs_batched": (_I, [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P]),
     "vt_extract_patches": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
     "vt_lk_block": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]),

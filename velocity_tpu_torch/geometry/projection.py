@@ -1,7 +1,10 @@
 """Pinhole projection, plane backprojection and pixel->ray conversion.
 
 Torch twin of ``velocity_tpu/geometry/projection.py``. ``Intrinsics`` holds
-0-d tensors; ``.to(dtype, device)`` moves all five at once.
+0-d tensors; ``.to(dtype, device)`` moves all five at once. ``stack`` gives
+one camera per lane (each entry (V,)), as JAX's ``run_batch`` stacks them;
+``project_camera_points`` and ``world_to_image`` then take points with the
+same leading lane axis.
 """
 
 from __future__ import annotations
@@ -27,6 +30,11 @@ class Intrinsics(NamedTuple):
         return Intrinsics(*(torch.as_tensor(v).to(dtype=dtype, device=device) for v in self))
 
     @classmethod
+    def stack(cls, intrs):
+        """One camera per lane: each entry the (V,) stack of the lanes'."""
+        return cls(*(torch.stack([torch.as_tensor(v) for v in vals]) for vals in zip(*intrs)))
+
+    @classmethod
     def from_matrix_rowvec(cls, K):
         """Build from the reference's row-vector intrinsic matrix layout."""
         K = torch.as_tensor(K)
@@ -47,18 +55,30 @@ def perspective_divide(p3):
     return p3[..., 0:2] / p3[..., 2:3]
 
 
+def _lane_entry(c, x):
+    """An intrinsic entry against (V, ...) values ``x``: 0-d as it is, one
+    per lane (V,) with ``x``'s trailing axes added."""
+    if not torch.is_tensor(c) or c.dim() == 0:
+        return c
+    return c.reshape(c.shape + (1,) * (x.dim() - c.dim()))
+
+
 def project_camera_points(intr: Intrinsics, pc):
-    """Project camera-frame points (..., 3) to pixels (..., 2)."""
+    """Project camera-frame points (..., 3) to pixels (..., 2); with lane
+    intrinsics (``Intrinsics.stack``), points (V, ..., 3)."""
     X, Y, Z = pc[..., 0], pc[..., 1], pc[..., 2]
+    fx, fy, cx, cy, skew = (_lane_entry(c, X) for c in intr)
     iz = 1.0 / Z
-    u = (intr.fx * X + intr.skew * Y) * iz + intr.cx
-    v = intr.fy * Y * iz + intr.cy
+    u = (fx * X + skew * Y) * iz + cx
+    v = fy * Y * iz + cy
     return torch.stack([u, v], dim=-1)
 
 
 def world_to_image(intr: Intrinsics, C, t, pw):
-    """Pixels of world points ``pw`` through pose (C, t): ``pw @ C + t``."""
-    return project_camera_points(intr, pw @ C + t)
+    """Pixels of world points ``pw`` (N, 3) through pose (C, t):
+    ``pw @ C + t``; with lanes, pw (V, N, 3), t (V, 3), C (3, 3) or
+    (V, 3, 3)."""
+    return project_camera_points(intr, pw @ C + t.unsqueeze(-2))
 
 
 def image_to_world_plane(intr: Intrinsics, C, t, p):

@@ -35,17 +35,21 @@ class LKResult(NamedTuple):
 
 
 def _affine_for_level(M, level, dtype):
-    """Level-L sampling map: linear part unchanged, translation / 2^L."""
+    """Level-L sampling map: linear part unchanged, translation / 2^L (of a
+    (2, 3) map or of each map of a stack (..., 2, 3))."""
     if M is None:
         return None
     M = M.to(dtype)
     s = 1.0 / (1 << level)
-    return torch.cat([M[:, :2], M[:, 2:3] * s], dim=1)
+    return torch.cat([M[..., :2], M[..., 2:3] * s], dim=-1)
 
 
 def _pad_edge(img, pad: int):
-    """Edge-pad (H, W) ``img`` by ``pad`` on every side."""
-    return F.pad(img[None, None], (pad, pad, pad, pad), mode="replicate")[0, 0]
+    """Edge-pad (H, W) ``img``, or each image of a stack (..., H, W), by
+    ``pad`` on every side."""
+    H, W = img.shape[-2:]
+    out = F.pad(img.reshape(-1, 1, H, W), (pad, pad, pad, pad), mode="replicate")
+    return out.reshape(img.shape[:-2] + out.shape[-2:])
 
 
 def _grad_xy(patch):

@@ -14,6 +14,16 @@ which is what a thread block per point reads. Public functions keep JAX's
 layouts (points ``(N, 2)``). The two kernel hooks sit where the JAX engine
 calls Pallas: ``_extract_slabs`` (K2) and the block update in
 ``_level_loop`` (K1).
+
+JAX's ``run_batch`` vmaps this engine over videos. Here the lanes of a batch
+are written out: the images are stacks (V, H, W) of equal-sized frames, the
+points lie on one lane-major axis of V*N (lane v's are rows v*N..v*N+N-1),
+and an affine map may be one (2, 3) per lane, (V, 2, 3). K2 then gathers
+every lane's windows in one launch, K1 updates every lane's points in one,
+and the early exit of ``_level_loop`` reads one flag for all lanes. Every
+per-point operation is the one of a single call, and a block in which a
+lane has no active point leaves that lane's points as they are, so each
+lane gets the bits of its own call.
 """
 
 from __future__ import annotations
@@ -42,7 +52,8 @@ def _round8(x: int) -> int:
 
 
 def _extract_slabs(img, corners, size: int):
-    """(N, size, size) integer-corner slabs, points-major, through K2.
+    """(N, size, size) integer-corner slabs, points-major, through K2, from
+    an image (H, W) or, lane-major, from a stack (V, H, W).
 
     Corners (N, 2) int32 xy clamp into the image (inside K2). Returns
     (slabs, clamped corners (N, 2) xy). Callers edge-pad ``img`` (and offset
@@ -50,11 +61,20 @@ def _extract_slabs(img, corners, size: int):
     corner shifts the slab content relative to the stencil anchor and
     corrupts every sample.
     """
-    H, W = img.shape
+    H, W = img.shape[-2:]
     if H < size or W < size:
-        img = F.pad(img[None, None], (0, max(0, size - W), 0, max(0, size - H)),
-                    mode="replicate")[0, 0]
+        pad = F.pad(img.reshape(-1, 1, H, W), (0, max(0, size - W), 0, max(0, size - H)),
+                    mode="replicate")
+        img = pad.reshape(img.shape[:-2] + pad.shape[-2:])
     return extract_slabs(img.contiguous(), corners, size)
+
+
+def _per_point(M, n_points: int):
+    """A (2, 3) map as it is; a stack of one map per lane (V, 2, 3) as one
+    per point (n_points, 2, 3), lane-major."""
+    if M is None or M.dim() == 2:
+        return M
+    return M.repeat_interleave(n_points // M.shape[0], dim=0)
 
 
 def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
@@ -64,14 +84,22 @@ def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
     ``centers[:, n] + (j - oo, i - oo)``. Bilinear interpolation factors into
     an x-pass per source row and a y-pass, each a WARP_TAPS-tap stencil over
     one axis-aligned slab per point (see the JAX twin for the derivation).
-    ``imgp`` must be edge-padded by ``pad`` >= slab size. Returns (patches,
-    fractional window corner (2, N)).
+    ``imgp`` must be edge-padded by ``pad`` >= slab size; it may be a stack
+    (V, H, W), and M one map (2, 3) or one per point (N, 2, 3). Returns
+    (patches, fractional window corner (2, N)).
     """
     dtype = centers.dtype
     dev = centers.device
     cx, cy = centers[0], centers[1]
-    base_x = M[0, 0] * cx + M[0, 1] * cy + M[0, 2]
-    base_y = M[1, 0] * cx + M[1, 1] * cy + M[1, 2]
+
+    def m(i, j):  # entry (i, j) of the map: 0-d, or (N,) per point
+        return M[..., i, j]
+
+    def e(c):  # a 0-d or per-point coefficient against (N, rows, cols) grids
+        return c[..., None, None]
+
+    base_x = m(0, 0) * cx + m(0, 1) * cy + m(0, 2)
+    base_y = m(1, 0) * cx + m(1, 1) * cy + m(1, 2)
     ms = WARP_TAPS // 2 - 1
     Q = _round8(P + WARP_TAPS)
 
@@ -87,15 +115,15 @@ def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
     jj = idx[None, None, :]
     ii = idx[None, :, None]
     # near-identity precondition: the x-pass solves the dest row through M11
-    m11 = M[1, 1]
+    m11 = m(1, 1)
     inv_m11 = torch.where(torch.abs(m11) > 1e-3, 1.0 / m11, torch.ones_like(m11))
 
     # x-pass positions (N, Q, P), relative to the identity slab column j
     yy = torch.arange(Q, dtype=dtype, device=dev)[None, :, None]
     ex = (
         bx_s[:, None, None]
-        + M[0, 0] * joff
-        + (M[0, 1] * inv_m11) * (yy - by_s[:, None, None] - M[1, 0] * joff)
+        + e(m(0, 0)) * joff
+        + e(m(0, 1) * inv_m11) * (yy - by_s[:, None, None] - e(m(1, 0)) * joff)
         - jj
     )
     ex = torch.clamp(ex, 0.0, WARP_TAPS - 1.0)
@@ -106,7 +134,7 @@ def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
         H = w * sl if H is None else H + w * sl
 
     # y-pass positions (N, P, P), relative to the identity row i
-    ey = by_s[:, None, None] + M[1, 0] * joff + M[1, 1] * ioff - ii
+    ey = by_s[:, None, None] + e(m(1, 0)) * joff + e(m11) * ioff - ii
     ey = torch.clamp(ey, 0.0, WARP_TAPS - 1.0)
     out = None
     for dy in range(WARP_TAPS):
@@ -141,10 +169,12 @@ def _level_loop(
     Each block (re)extracts destination patches anchored at the current
     estimates, then runs BLOCK_ITERS updates (K1). The loop exits once no
     trackable point is left undone; the blocks it skips would change
-    nothing, since only active (trackable, not done) points move.
+    nothing, since only active (trackable, not done) points move. With a
+    stack ``dimg`` (V, H, W) the loop runs while any lane has such a point;
+    ``warp`` is then one map per point.
     """
     N = pts0.shape[1]
-    Hd, Wd = dimg.shape
+    Hd, Wd = dimg.shape[-2:]
     cubic = warp is not None
     if cubic:
         oo = (win - 1) // 2 + REACH + 1  # anchor offset o0 = REACH+1, range +-REACH
@@ -209,6 +239,9 @@ def lk_pyramidal_lanes(
     fine tracking); ``warp_src`` warps the source side instead (the backward
     leg of forward-backward gating with a warp). ``src_pyr``/``dst_pyr``:
     prebuilt pyramids (>= max_level+1 levels), built once per frame.
+
+    Lanes: images (V, H, W), ``pts_src`` and ``guess`` (V*N, 2) lane-major,
+    each warp one (2, 3) map or one per lane (V, 2, 3).
     """
     dtype = pts_src.dtype if pts_src.is_floating_point() else torch.float32
     pts_src = pts_src.to(dtype)
@@ -232,10 +265,10 @@ def lk_pyramidal_lanes(
 
     for level in range(max_level, -1, -1):
         simg, dimg = src_pyr[level], dst_pyr[level]
-        Hs, Ws = simg.shape
+        Hs, Ws = simg.shape[-2:]
         scale = 1.0 / (1 << level)
-        Md = _affine_for_level(warp_dst, level, dtype)
-        Ms = _affine_for_level(warp_src, level, dtype)
+        Md = _per_point(_affine_for_level(warp_dst, level, dtype), N)
+        Ms = _per_point(_affine_for_level(warp_src, level, dtype), N)
         p_l = ptsT * scale
         cx, cy = p_l[0], p_l[1]
 
@@ -287,7 +320,7 @@ def lk_pyramidal_lanes(
         )
 
         if level == 0:
-            Hd, Wd = dimg.shape
+            Hd, Wd = dimg.shape[-2:]
             inx = torch.floor(cur[0] - half)
             iny = torch.floor(cur[1] - half)
             status = status & (inx >= -win) & (iny >= -win) & (inx < Wd) & (iny < Hd)

@@ -8,6 +8,9 @@ true f32 (no matmul, no cuDNN convolution, so TF32 cannot creep in).
 - ``pyr_down``: cv2.pyrDown -- 5-tap [1,4,6,4,1]/16 Gaussian, reflect-101
   borders, decimation at even indices, output ((h+1)//2, (w+1)//2).
 - ``resize_nearest``: cv2.resize INTER_NEAREST, src = min(floor(i/s), n-1).
+
+Both take an image (H, W) or a stack of them (..., H, W), as JAX's vmap over
+videos hands them one; each image of a stack gets the bits of its own call.
 """
 
 from __future__ import annotations
@@ -24,32 +27,36 @@ def _float(img):
 
 
 def _down_axis(xp, m: int, dim: int):
-    """5-tap stencil at even centres along ``dim`` of a reflect-padded array."""
+    """5-tap stencil at even centres along ``dim`` (-2 rows, -1 columns) of a
+    reflect-padded array."""
     out = None
     for t, k in enumerate(_G5):
         sl = xp.narrow(dim, t, 2 * m - 1)
-        sl = sl[::2] if dim == 0 else sl[:, ::2]
+        sl = sl[..., ::2, :] if dim == -2 else sl[..., ::2]
         out = k * sl if out is None else out + k * sl
     return out
 
 
 def pyr_down(img):
-    """One Gaussian pyramid level down (cv2.pyrDown semantics)."""
+    """One Gaussian pyramid level down (cv2.pyrDown semantics) of an image
+    (H, W) or a stack (..., H, W)."""
     x = _float(img)
-    H, W = x.shape
+    H, W = x.shape[-2:]
     h2, w2 = (H + 1) // 2, (W + 1) // 2
-    xp = F.pad(x[None, None], (2, 2, 2, 2), mode="reflect")[0, 0]
-    v = _down_axis(xp, h2, 0)  # vertical pass first, as the JAX R @ X @ C^T
-    return _down_axis(v, w2, 1)
+    xp = F.pad(x.reshape(-1, 1, H, W), (2, 2, 2, 2), mode="reflect")
+    xp = xp.reshape(x.shape[:-2] + xp.shape[-2:])
+    v = _down_axis(xp, h2, -2)  # vertical pass first, as the JAX R @ X @ C^T
+    return _down_axis(v, w2, -1)
 
 
 def resize_nearest(img, scale: float):
-    """cv2.resize INTER_NEAREST with fx=fy=scale; keeps the input dtype."""
-    H, W = img.shape
+    """cv2.resize INTER_NEAREST with fx=fy=scale of an image (H, W) or a
+    stack (..., H, W); keeps the input dtype."""
+    H, W = img.shape[-2:]
     h = int(round(H * scale))
     w = int(round(W * scale))
     rows = np.minimum(np.floor(np.arange(h) / scale).astype(np.int64), H - 1)
     cols = np.minimum(np.floor(np.arange(w) / scale).astype(np.int64), W - 1)
     dev = img.device
-    out = img.index_select(0, torch.as_tensor(rows, device=dev))
-    return out.index_select(1, torch.as_tensor(cols, device=dev))
+    out = img.index_select(-2, torch.as_tensor(rows, device=dev))
+    return out.index_select(-1, torch.as_tensor(cols, device=dev))

@@ -1,16 +1,23 @@
 """Multi-video batch runner: several clips through one call.
 
 Torch twin of ``velocity_tpu/pipeline/multivideo.py:run_batch``. JAX vmaps
-``scan_segment`` over a video axis laid out on a device mesh; here lane
-``v`` (one video) runs on ``mesh[v % len(mesh)]`` (or on the one
-``device``), and each segment is a loop over lanes of ``scan_segment``
-(``pipeline/scan.py``). Per video, on the host: decode and frame-0 init,
-then segment A (frames 1..msv), then the MSV scale transfer in f64 (it calls
-``msv_refine_translation`` directly and moves the cloud by the lane's
-translation at the MSV frame; the rows before it keep their translations),
-then segment B from ``vp = vg`` at the MSV frame. A lane whose tracking
-collapsed at some frame is run again through the per-frame driver, which
-carries the feature-match rescue.
+``scan_segment`` over a video axis laid out on a device mesh
+(``_batched_segment``); here lane ``v`` (one video) runs on
+``mesh[v % len(mesh)]`` (or on the one ``device``), and the lanes placed on
+one mesh device run each segment as one ``scan_segment`` over a lane axis
+(``pipeline/scan.py``): one batched frame step per device per frame, whose
+LK launches K2 and K1 once for all its lanes' points. Per video, on the
+host: decode and frame-0 init, then segment A (frames 1..msv), then the MSV
+scale transfer in f64 (it calls ``msv_refine_translation`` directly and
+moves the cloud by the lane's translation at the MSV frame; the rows before
+it keep their translations), then segment B from ``vp = vg`` at the MSV
+frame. A lane whose tracking collapsed at some frame is run again through
+the per-frame driver, which carries the feature-match rescue.
+
+The step takes a lane axis only on the lanes LK engine without feature
+shards; ``lk_backend="fast"``, the gather engine and ``shard_features > 1``
+run each segment lane by lane (``scan_segment`` per lane) on the same
+kernels and devices. ``timings["lanes_path"]`` names the path that ran.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import numpy as np
 import torch
 
 from velocity_tpu_torch.config import PipelineConfig
+from velocity_tpu_torch.geometry.projection import Intrinsics
 from velocity_tpu_torch.pipeline.roi import inside_bbox
 from velocity_tpu_torch.pipeline.scan import _decode, record_segment, scan_segment, stats_table
 from velocity_tpu_torch.pipeline.speedest import (
@@ -28,6 +36,28 @@ from velocity_tpu_torch.pipeline.speedest import (
     resolve_annotation)
 from velocity_tpu_torch.pipeline.tracker import frame_pyramids
 from velocity_tpu_torch.solvers.triangulate import msv_refine_translation
+
+BATCHED, LANE_LOOP = "batched", "lane loop"
+
+
+def lanes_path(cfg: PipelineConfig) -> str:
+    """The segment path ``run_batch`` takes for ``cfg``: the batched step
+    (lanes LK engine, no feature shards) or the loop over lanes."""
+    tr = cfg.tracker
+    return BATCHED if tr.lk_backend == "lanes" and tr.shard_features <= 1 else LANE_LOOP
+
+
+def _stack(states):
+    """Per-lane states (tuples of tensors or of pyramids) stacked lane-major."""
+    return tuple(tuple(torch.stack(levels) for levels in zip(*parts))
+                 if isinstance(parts[0], tuple) else torch.stack(parts)
+                 for parts in zip(*states))
+
+
+def _unstack(state, i: int):
+    """Lane i of a state that ``_stack`` built (or a segment returned)."""
+    return tuple(tuple(level[i] for level in part) if isinstance(part, tuple) else part[i]
+                 for part in state)
 
 
 def run_batch(
@@ -82,23 +112,51 @@ def run_batch(
     msv_i = cfg.msv_frame
     seg_a = min(msv_i, n - 1)
 
-    # ---- segment A, lane by lane ----
+    # ---- the segments: one batched call per mesh device, or one per lane ----
+    path = lanes_path(cfg)
+    slots = len(devices)
+    groups = ([[v for v in range(V) if v % slots == s] for s in range(min(slots, V))]
+              if path == BATCHED else [[v] for v in range(V)])
+    if path == BATCHED:
+        for group in groups:
+            shapes = {tuple(frames_all[v].shape[1:]) for v in group}
+            if len(shapes) > 1:
+                raise ValueError(f"run_batch: the lanes of one device need frames of one "
+                                 f"size, got {sorted(shapes)}")
     lanes = []
     for v in range(V):
         dev, init = lane_dev[v], inits[v]
         gen = torch.Generator(device=dev)
         gen.manual_seed(v)
-        intr = cams[v].intrinsics(scale=scale).to(dtype=sdt, device=dev)
-        p3_0 = torch.as_tensor(init["p3"], dtype=sdt, device=dev)
-        pyr0, spyr0 = frame_pyramids(frames_all[v][0], cfg.tracker)
+        lanes.append(dict(
+            gen=gen, intr=cams[v].intrinsics(scale=scale).to(dtype=sdt, device=dev),
+            p3_0=torch.as_tensor(init["p3"], dtype=sdt, device=dev),
+            start=(*frame_pyramids(frames_all[v][0], cfg.tracker),
+                   torch.as_tensor(init["p"], dtype=torch.float32, device=dev),
+                   torch.as_tensor(init["valid"], device=dev),
+                   torch.as_tensor(init["valid"] & inside_bbox(init["p"], init["boxa"]),
+                                   device=dev),
+                   torch.as_tensor(init["t0"], dtype=sdt, device=dev))))
+
+    def segment(group, first, stop, starts, p3s):
+        """Frames first..stop-1 of the group's lanes from their start states
+        (pyr, spyr, pts, vg, vp, t) and structures: {v: (carry, outs)}."""
+        if path == LANE_LOOP:
+            (v,) = group
+            return {v: scan_segment(frames_all[v][first:stop], *starts[0], p3s[0],
+                                    lanes[v]["intr"], lanes[v]["gen"], cfg.tracker, cfg.solver,
+                                    sdt)}
         carry, outs = scan_segment(
-            frames_all[v][1 : seg_a + 1], pyr0, spyr0,
-            torch.as_tensor(init["p"], dtype=torch.float32, device=dev),
-            torch.as_tensor(init["valid"], device=dev),
-            torch.as_tensor(init["valid"] & inside_bbox(init["p"], init["boxa"]), device=dev),
-            torch.as_tensor(init["t0"], dtype=sdt, device=dev), p3_0, intr, gen,
-            cfg.tracker, cfg.solver, sdt)
-        lanes.append(dict(gen=gen, intr=intr, p3_0=p3_0, carry=carry, outA=outs))
+            torch.stack([frames_all[v][first:stop] for v in group]), *_stack(starts),
+            torch.stack(p3s), Intrinsics.stack([lanes[v]["intr"] for v in group]),
+            [lanes[v]["gen"] for v in group], cfg.tracker, cfg.solver, sdt)
+        return {v: (_unstack(carry, i), _unstack(outs, i)) for i, v in enumerate(group)}
+
+    # ---- segment A ----
+    for group in groups:
+        for v, (carry, outs) in segment(group, 1, seg_a + 1, [lanes[v]["start"] for v in group],
+                                        [lanes[v]["p3_0"] for v in group]).items():
+            lanes[v].update(carry=carry, outA=outs)
 
     # ---- per-video tables from segment A ----
     B_all = np.zeros((V, n, 14))
@@ -140,14 +198,15 @@ def run_batch(
             lane["p3_B"] = torch.as_tensor(p3_B, dtype=sdt, device=lane_dev[v])
             lane["vp_B"] = torch.as_tensor(vg_msv, device=lane_dev[v])
             msv_s[v] = time.perf_counter() - t_m
-        # ---- segment B, lane by lane ----
-        for v in range(V):
-            lane = lanes[v]
-            pyr, spyr, pts, vg, _vp, t_msv = lane["carry"]
-            _carry, outs = scan_segment(
-                frames_all[v][msv_i + 1 : n], pyr, spyr, pts, vg, lane["vp_B"], t_msv,
-                lane["p3_B"], lane["intr"], lane["gen"], cfg.tracker, cfg.solver, sdt)
-            record_segment(msv_i + 1, outs, *tables[v])
+        # ---- segment B ----
+        for group in groups:
+            starts = []
+            for v in group:
+                pyr, spyr, pts, vg, _vp, t_msv = lanes[v]["carry"]
+                starts.append((pyr, spyr, pts, vg, lanes[v]["vp_B"], t_msv))
+            for v, (_carry, outs) in segment(group, msv_i + 1, n, starts,
+                                              [lanes[v]["p3_B"] for v in group]).items():
+                record_segment(msv_i + 1, outs, *tables[v])
 
     # ---- feature-match rescue (reference KLT.py:126-130): a lane whose
     # stage-2 survivor count collapsed anywhere is re-run through the
@@ -188,6 +247,6 @@ def run_batch(
             valid=valid_all[v], plate_box=inits[v]["boxa"], roi_box=inits[v]["boxb"],
             camera=cams[v], config=cfg, first_gray=frames_all[v][0].cpu().numpy(),
             last_gray=frames_all[v][n - 1].cpu().numpy(),
-            timings={"wall_s": wall, "msv_s": msv_s[v]},
+            timings={"wall_s": wall, "msv_s": msv_s[v], "lanes_path": path},
         ))
     return results

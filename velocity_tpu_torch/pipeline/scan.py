@@ -49,27 +49,42 @@ def scan_segment(frames, pyr0, spyr0, pts0, vg0, vp0, t0, p3, intr, generator,
     pproj, n2), each stacked over the k frames, on the device; with
     ``lean=True`` outs is the (k, 6) float32 stack of each frame's
     ``pack_summary`` instead (one copy to the host serves the segment).
+
+    Lanes (JAX's vmap of the segment over videos; ``pts0`` (V, N, 2)): the
+    frames are (V, k, H, W), the state carries the lane axis (see
+    ``fused_frame_step_pyr``), ``generator`` is a list of V generators
+    (lane v's draws come from the v-th in frame order), and every output is
+    stacked over frames on axis 1, (V, k, ...), as vmap stacks it. Each
+    frame is one step for all lanes.
     """
-    gens = generator if isinstance(generator, list) else [generator] * len(frames)
+    lanes = pts0.dim() == 3
+    k = frames.shape[1] if lanes else len(frames)
+    per_frame = generator if isinstance(generator, list) and not lanes else [generator] * k
+    if len(per_frame) != k:
+        raise ValueError(f"scan_segment: {len(per_frame)} generators for {k} frames")
     carry = (pyr0, spyr0, pts0, vg0, vp0, t0)
     outs = []
-    for im, gen in zip(frames, gens, strict=True):
+    for j, gen in enumerate(per_frame):
         pyr, spyr, pts, vg, vp, t_prev = carry
+        im = frames[:, j] if lanes else frames[j]
         (pyr, spyr, pts, vg, vp, t, res, pproj, n2, _T23) = fused_frame_step_pyr(
             pyr, spyr, im, pts, vg, vp, p3, intr, gen, cfg, solver_cfg, solver_dtype,
             t_prev)
         carry = (pyr, spyr, pts, vg, vp, t.to(t_prev.dtype))
         outs.append(pack_summary(t, res, vg, n2) if lean
                     else (pts, vg, vp, t, res, pproj, n2))
+    axis = 1 if lanes else 0
+    lead = pts0.shape[:-2]
     if lean:
-        return carry, (torch.stack(outs) if outs
-                       else torch.empty((0, 6), dtype=torch.float32, device=pts0.device))
+        return carry, (torch.stack(outs, dim=axis) if outs else
+                       torch.empty(lead + (0, 6), dtype=torch.float32, device=pts0.device))
     if not outs:
-        N = pts0.shape[0]
-        return carry, (pts0.new_empty((0, N, 2)), vg0.new_empty((0, N)),
-                       vp0.new_empty((0, N)), t0.new_empty((0, 3)), t0.new_empty((0,)),
-                       t0.new_empty((0, N, 2)), t0.new_empty((0,), dtype=torch.long))
-    return carry, tuple(torch.stack(o) for o in zip(*outs))
+        N = pts0.shape[-2]
+        return carry, (pts0.new_empty(lead + (0, N, 2)), vg0.new_empty(lead + (0, N)),
+                       vp0.new_empty(lead + (0, N)), t0.new_empty(lead + (0, 3)),
+                       t0.new_empty(lead + (0,)), t0.new_empty(lead + (0, N, 2)),
+                       t0.new_empty(lead + (0,), dtype=torch.long))
+    return carry, tuple(torch.stack(o, dim=axis) for o in zip(*outs))
 
 
 def segment_to_host(outs):

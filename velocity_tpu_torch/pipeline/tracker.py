@@ -17,6 +17,15 @@ or any other value for the gather engine (``ops/lk.py``); the last two
 rebuild their pyramids inside each call, as in JAX. With "lanes" and
 ``shard_features > 1`` the forward-backward stages split their lanes over
 that many shards (``_sharded_fb``).
+
+Lanes (JAX's ``run_batch`` vmaps the step over videos): with the lanes
+backend and no feature shards, ``fused_frame_step_pyr`` and the stage
+functions below it take a leading lane axis on every input (frames and
+pyramid levels (V, H, W) of equal size, points (V, N, ...), stacked
+``Intrinsics``, one RANSAC generator per lane in a list) and return one. The
+LK engine then tracks all lanes' points in one pass (one K2 and one K1
+launch per block), RANSAC and the pose LM run batched with each lane's
+reductions its own, and each lane gets the bits of its own step.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from velocity_tpu_torch.ops.lk import lk_forward_backward, lk_pyramidal
 from velocity_tpu_torch.ops.lk_fast import lk_forward_backward_fast, lk_pyramidal_fast
 from velocity_tpu_torch.ops.lk_lanes import lk_forward_backward_lanes, lk_pyramidal_lanes
 from velocity_tpu_torch.ops.pyramid import build_pyramid, resize_nearest
-from velocity_tpu_torch.ops.ransac import estimate_affine_ransac
+from velocity_tpu_torch.ops.ransac import _map_points, estimate_affine_ransac
 
 
 def _lk_impls(cfg: TrackerConfig):
@@ -68,8 +77,9 @@ def _pyr_kw(cfg: TrackerConfig, src_pyr, dst_pyr):
 
 
 def frame_pyramids(im, cfg: TrackerConfig, dtype=torch.float32):
-    """(full, small): float pyramids of the frame and of its 1/4-scale
-    INTER_NEAREST image, built once per frame."""
+    """(full, small): float pyramids of the frame (or of each frame of a
+    stack (V, H, W)) and of its 1/4-scale INTER_NEAREST image, built once
+    per frame."""
     f = im.to(dtype)
     full = tuple(build_pyramid(f, cfg.lk_coarse.max_level))
     small_img = resize_nearest(f, cfg.coarse_scale)
@@ -88,16 +98,20 @@ class TrackOutput(NamedTuple):
 def _car_mask(pts, valid, cfg: TrackerConfig):
     """Lanes within ``car_margin`` plate diagonals of the tracked plate
     corners (lanes 0..3); ``valid`` when fewer than 8 lanes qualify."""
-    qv = pts[0:4]
-    lo = torch.amin(qv, dim=0)
-    hi = torch.amax(qv, dim=0)
-    m = cfg.car_margin * torch.sqrt(torch.sum((hi - lo) ** 2))
+    qv = pts[..., 0:4, :]
+    lo = torch.amin(qv, dim=-2)
+    hi = torch.amax(qv, dim=-2)
+    m = cfg.car_margin * torch.sqrt(torch.sum((hi - lo) ** 2, dim=-1))
+
+    def edge(c):  # a bound per lane against the lane's points
+        return c[..., None]
+
     inbox = (
-        (pts[:, 0] >= lo[0] - m) & (pts[:, 0] <= hi[0] + m)
-        & (pts[:, 1] >= lo[1] - m) & (pts[:, 1] <= hi[1] + m)
+        (pts[..., 0] >= edge(lo[..., 0] - m)) & (pts[..., 0] <= edge(hi[..., 0] + m))
+        & (pts[..., 1] >= edge(lo[..., 1] - m)) & (pts[..., 1] <= edge(hi[..., 1] + m))
     )
     mc = valid & inbox
-    return torch.where(torch.sum(mc) >= 8, mc, valid)
+    return torch.where(edge(torch.sum(mc, dim=-1)) >= 8, mc, valid)
 
 
 def _ransac(src, dst, mask, cfg: TrackerConfig, generator):
@@ -107,7 +121,9 @@ def _ransac(src, dst, mask, cfg: TrackerConfig, generator):
 
 def _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
                     generator, cfg: TrackerConfig):
-    """Stages 1-2 + the stage-3 affine, on prebuilt per-frame pyramids."""
+    """Stages 1-2 + the stage-3 affine, on prebuilt per-frame pyramids (of
+    one frame, or with lanes; the LK engine sees the lanes' points on one
+    axis)."""
     dtype = pts.dtype
     scale = cfg.coarse_scale
     lk_pyr, lk_fb = _lk_impls(cfg)
@@ -115,12 +131,12 @@ def _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
     # ---- stage 1: coarse global LK on small images + RANSAC inliers ----
     lk1 = cfg.lk_coarse
     r1 = lk_pyr(
-        spyr_prev[0].to(dtype), spyr_cur[0].to(dtype), pts * scale,
+        spyr_prev[0].to(dtype), spyr_cur[0].to(dtype), (pts * scale).reshape(-1, 2),
         win=lk1.window, max_level=lk1.max_level, iters=lk1.max_iters, eps=lk1.eps,
         **_pyr_kw(cfg, spyr_prev, spyr_cur),
     )
-    p1 = r1.points / scale
-    v1 = valid & r1.status
+    p1 = r1.points.reshape(pts.shape) / scale
+    v1 = valid & r1.status.reshape(valid.shape)
     m1r = _car_mask(pts, v1, cfg) if cfg.car_affine else v1
     ransac1 = _ransac(pts, p1, m1r, cfg, generator)
     v1 = v1 & ransac1.inliers
@@ -128,44 +144,46 @@ def _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
     # ---- stage 2: translation-prior LK at full resolution ----
     # an integer-translation destination warp is exactly plain LK seeded at
     # pts + shift (reference: int() truncation of the mean shift)
-    m1 = v1.to(dtype)[:, None]
-    n1 = torch.clamp(torch.sum(v1), min=1)
-    mean_shift = torch.sum((p1 - pts) * m1, dim=0) / n1
+    m1 = v1.to(dtype)[..., None]
+    n1 = torch.clamp(torch.sum(v1, dim=-1), min=1)
+    mean_shift = torch.sum((p1 - pts) * m1, dim=-2) / n1[..., None]
     shift_int = torch.trunc(mean_shift)
     lvl2 = cfg.stage2_max_level if cfg.stage2_max_level is not None else lk1.max_level
     r2 = lk_fb(
-        pyr_prev[0].to(dtype), pyr_cur[0].to(dtype), pts,
-        guess=pts + shift_int, fb_threshold=cfg.fb_threshold_coarse,
+        pyr_prev[0].to(dtype), pyr_cur[0].to(dtype), pts.reshape(-1, 2),
+        guess=(pts + shift_int[..., None, :]).reshape(-1, 2),
+        fb_threshold=cfg.fb_threshold_coarse,
         win=lk1.window, max_level=lvl2, iters=lk1.max_iters, eps=lk1.eps,
         **_pyr_kw(cfg, pyr_prev[: lvl2 + 1], pyr_cur[: lvl2 + 1]),
     )
-    p2 = r2.points
-    v2 = valid & r2.status
-    n2 = torch.sum(v2)
+    p2 = r2.points.reshape(pts.shape)
+    v2 = valid & r2.status.reshape(valid.shape)
+    n2 = torch.sum(v2, dim=-1)
 
     # ---- affine for stage 3 from stage-2 survivors ----
     m2r = _car_mask(pts, v2, cfg) if cfg.car_affine else v2
     ransac2 = _ransac(pts, p2, m2r, cfg, generator)
     # degenerate guard: if stage 2 collapsed, fall back to the stage-1 model
     use2 = n2 > cfg.min_affine_inliers
-    T23 = torch.where(use2, ransac2.M, ransac1.M)
+    T23 = torch.where(use2[..., None, None], ransac2.M, ransac1.M)
     return T23, n2
 
 
 def _track_fine_p(pyr_prev, pyr_cur, pts, valid, T23, cfg: TrackerConfig):
-    """Stage 3 (fine, affine-warped, fb-gated) on prebuilt pyramids."""
+    """Stage 3 (fine, affine-warped, fb-gated) on prebuilt pyramids (of one
+    frame, or with lanes and one T23 per lane)."""
     dtype = pts.dtype
     lk3 = cfg.lk_fine
     _, lk_fb = _lk_impls(cfg)
     r3 = lk_fb(
-        pyr_prev[0].to(dtype), pyr_cur[0].to(dtype), pts,
+        pyr_prev[0].to(dtype), pyr_cur[0].to(dtype), pts.reshape(-1, 2),
         fb_threshold=cfg.fb_threshold_fine, warp_dst=T23,
         win=lk3.window, max_level=lk3.max_level, iters=lk3.max_iters, eps=lk3.eps,
         **_pyr_kw(cfg, pyr_prev[: lk3.max_level + 1], pyr_cur[: lk3.max_level + 1]),
     )
     # map solved (previous-frame) coords through the affine into the current frame
-    p3 = r3.points @ T23[:, :2].T + T23[:, 2]
-    v3 = valid & r3.status
+    p3 = _map_points(r3.points.reshape(pts.shape), T23)
+    v3 = valid & r3.status.reshape(valid.shape)
     return p3, v3
 
 
@@ -207,7 +225,8 @@ def _step_core(pyr_prev, spyr_prev, pyr_cur, spyr_cur, pts, vg, vp, p3, intr,
     vp_new = vp & vg_new
 
     if t0 is None:
-        t0 = torch.tensor([0.0, 0.0, 1.0], dtype=solver_dtype, device=dev)
+        t0 = torch.tensor([0.0, 0.0, 1.0], dtype=solver_dtype, device=dev).expand(
+            pts.shape[:-2] + (3,))
     pose = estimate_world_camera_pose(
         intr,
         p_new.to(solver_dtype),
@@ -239,7 +258,12 @@ def fused_frame_step_pyr(
     """One frame step with pyramid carry: builds the current frame's
     pyramids once and returns them for the next step, then
     (pts', vg', vp', t, residual_rms, p_proj, n_stage2, T23).
-    ``t0`` warm-starts the pose solve from the previous translation."""
+    ``t0`` warm-starts the pose solve from the previous translation.
+
+    With lanes (lanes backend, ``shard_features`` 1): ``im_cur`` (V, H, W),
+    the pyramids' levels (V, h, w), pts (V, N, 2), vg and vp (V, N), p3
+    (V, N, 3), ``intr`` from ``Intrinsics.stack``, ``generator`` a list of V
+    generators, t0 (V, 3); every output gains the lane axis."""
     pyr_cur, spyr_cur = frame_pyramids(im_cur, cfg)
     outs = _step_core(pyr_prev, spyr_prev, pyr_cur, spyr_cur, pts, vg, vp, p3, intr,
                       generator, t0, cfg, solver_cfg, solver_dtype)
@@ -249,10 +273,11 @@ def fused_frame_step_pyr(
 def pack_summary(t, residual_rms, vg, n2):
     """One frame's packed summary, float32 (6,) on the step's device:
     [t(3), residual_rms, live lanes, stage-2 survivors] (JAX's ``packed``,
-    ``velocity_tpu/pipeline/tracker.py:275-282``). A transfer-lean run
-    reads this one vector per frame in place of the per-point history."""
-    return torch.cat([t.float(), residual_rms.float().reshape(1),
-                      vg.sum().float().reshape(1), n2.float().reshape(1)])
+    ``velocity_tpu/pipeline/tracker.py:275-282``), (V, 6) with lanes. A
+    transfer-lean run reads this one vector per frame in place of the
+    per-point history."""
+    return torch.cat([t.float(), residual_rms.float()[..., None],
+                      vg.sum(dim=-1).float()[..., None], n2.float()[..., None]], dim=-1)
 
 
 def fused_frame_step(

@@ -9,6 +9,16 @@ on the host once per iteration.
 Masking contract: ``residual_fn(x)`` returns the full static-shape residual
 with invalid measurements already zeroed inside the function, so their
 Jacobian rows vanish too.
+
+Lanes (JAX's vmap of the ``while_loop``): ``x0`` (V, nx) and a residual
+function (V, nx) -> (V, R) whose lane v reads only x[v]. The loop runs while
+any lane is active, with one host read per iteration for all lanes; a lane
+whose step fell below ``tol`` (or that reached the cap) is frozen: its x,
+step rms and iteration count are kept, not stepped again. The residuals and
+Jacobians of all lanes are evaluated at once (the Jacobian's columns by one
+forward-mode pass per parameter, each lane's tangent the same unit vector);
+each active lane's normal equations and solve run as its own call, which a
+batched matrix product could change in the last bit.
 """
 
 from __future__ import annotations
@@ -21,7 +31,7 @@ from torch.func import jacfwd
 
 class LMResult(NamedTuple):
     x: torch.Tensor
-    iterations: int  # number of iterations executed
+    iterations: int  # number of iterations executed (with lanes: a list, one per lane)
     delta_rms: torch.Tensor  # rms of last step
     residual_rms: torch.Tensor  # masked rms of residual at solution
 
@@ -41,8 +51,13 @@ def lm_solve(
 
     ``residual_fn``: x -> r where r = z - zhat (masked entries zero).
     ``num_residuals``: count of *valid* residual entries for the reported rms
-    (defaults to r.numel()).
+    (defaults to r.numel()). With lanes (``x0`` (V, nx)), ``damping`` and
+    ``num_residuals`` are scalars or (V,).
     """
+    if x0.dim() == 2:
+        return _lm_solve_lanes(residual_fn, x0, max_iters=max_iters, damping=damping, tol=tol,
+                               ramp_rate=ramp_rate, use_ramp=use_ramp,
+                               num_residuals=num_residuals)
     dtype = x0.dtype
     dev = x0.device
     nx = x0.shape[0]
@@ -72,3 +87,50 @@ def lm_solve(
         n = torch.clamp(torch.as_tensor(num_residuals, dtype=dtype, device=dev), min=1.0)
     return LMResult(x=x, iterations=i, delta_rms=delta_rms,
                     residual_rms=torch.sqrt(torch.sum(r * r) / n))
+
+
+def _lm_solve_lanes(residual_fn, x0, *, max_iters, damping, tol, ramp_rate, use_ramp,
+                    num_residuals) -> LMResult:
+    """``lm_solve`` over the lanes of ``x0`` (V, nx): each lane's iterates,
+    step rms and count are those of its own call."""
+    dtype = x0.dtype
+    dev = x0.device
+    V, nx = x0.shape
+    damping = torch.as_tensor(damping, dtype=dtype, device=dev).expand(V)
+    eyes = [torch.eye(nx, dtype=dtype, device=dev) * damping[v] for v in range(V)]
+    tol = max(tol, 50.0 * float(torch.finfo(dtype).eps))
+    basis = torch.eye(nx, dtype=dtype, device=dev)[:, None, :].expand(nx, V, nx)
+
+    def jac(x):  # (V, R, nx): column k is the tangent of e_k in every lane
+        cols = torch.func.vmap(lambda e: torch.func.jvp(residual_fn, (x,), (e,))[1])(basis)
+        return cols.permute(1, 2, 0)
+
+    x = x0
+    iters = [0] * V
+    delta_rms = torch.full((V,), float("inf"), dtype=dtype, device=dev)
+    active = [max_iters > 0] * V
+    while any(active):
+        r, J = residual_fn(x), jac(x)
+        deltas = torch.zeros_like(x)
+        for v in (v for v in range(V) if active[v]):
+            # r = z - zhat, J = dr/dx = -dzhat/dx
+            g = -(J[v].T @ r[v])
+            H = J[v].T @ J[v] + eyes[v]
+            delta = torch.linalg.solve_ex(H, g).result  # H is SPD: solve's check never fires
+            if use_ramp:
+                delta = delta * min(((iters[v] + 1.0) * ramp_rate) ** 2, 1.0)
+            deltas[v] = delta
+            iters[v] += 1
+        on = torch.tensor(active, device=dev)
+        x = torch.where(on[:, None], x + deltas, x)
+        rms = torch.sqrt(torch.sum(deltas * deltas, dim=-1) / nx)
+        delta_rms = torch.where(on, rms, delta_rms)
+        going = (delta_rms >= tol).tolist()  # the one host read of the iteration
+        active = [going[v] and iters[v] < max_iters for v in range(V)]
+    r = residual_fn(x)
+    if num_residuals is None:
+        n = torch.full((V,), float(r.shape[-1]), dtype=dtype, device=dev)
+    else:
+        n = torch.clamp(torch.as_tensor(num_residuals, dtype=dtype, device=dev), min=1.0)
+    return LMResult(x=x, iterations=iters, delta_rms=delta_rms,
+                    residual_rms=torch.sqrt(torch.sum(r * r, dim=-1) / n))

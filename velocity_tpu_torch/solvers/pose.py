@@ -6,6 +6,12 @@ Torch twin of ``velocity_tpu/solvers/pose.py``:
 - ``estimate_world_camera_pose`` <-> reference ``estimateWorldCameraPose``
 The host numpy twins (``_planar_pose_homography_np``, ``_polish_pose_np``,
 ``solve_translation_np``, ``_mirror_plate_pose_np``) are copied as they are.
+
+Lanes (JAX's vmap over videos): ``solve_translation`` and
+``estimate_world_camera_pose(find_R=False)`` take points with a leading
+lane axis, (V, N, 2) and (V, N, 3), translations (V, 3), masks (V, N) and
+``Intrinsics.stack``-ed cameras; each lane's LM stops on its own (see
+``solvers/lm.py``), and its robust second pass decides on its own points.
 """
 
 from __future__ import annotations
@@ -25,24 +31,25 @@ from velocity_tpu_torch.solvers.lm import LMResult, lm_solve
 
 
 class PoseResult(NamedTuple):
-    t: torch.Tensor  # (3,) camera->plate translation (camera frame)
+    t: torch.Tensor  # (3,) camera->plate translation (camera frame); (V, 3) with lanes
     R: torch.Tensor  # (3, 3) rotation (row-vector convention)
     residual_rms: torch.Tensor  # masked rms reprojection error (px)
     p_proj: torch.Tensor  # (N, 2) reprojected points (all lanes)
-    iterations: int
+    iterations: int  # a list, one per lane, with lanes
 
 
 def _masked_residual(intr, p, mask, predict):
     """r = where(mask, (p - predict(x))/fx, 0) flattened, the valid count and
     the matching damping scale. Normalized units keep J^T J O(1) in f32; with
     the damping scaled by 1/fx^2 the iterates equal the pixel-unit ones."""
-    m = mask[:, None]
+    m = mask[..., None]
     inv_f = 1.0 / intr.fx
+    inv_f_p = inv_f if inv_f.dim() == 0 else inv_f[:, None, None]  # per lane
 
     def residual(x):
-        return (torch.where(m, p - predict(x), 0.0) * inv_f).reshape(-1)
+        return (torch.where(m, p - predict(x), 0.0) * inv_f_p).reshape(p.shape[:-2] + (-1,))
 
-    nvalid = 2.0 * torch.sum(mask)
+    nvalid = 2.0 * torch.sum(mask, dim=-1)
     damping_scale = inv_f * inv_f
     return residual, nvalid, damping_scale
 
@@ -55,11 +62,12 @@ def solve_translation(
     mask: torch.Tensor | None = None,  # (N,) bool validity
     config: SolverConfig = SolverConfig(),
 ) -> LMResult:
-    """3-parameter LM: find t minimizing ||p - project(pw + t)|| over valid lanes."""
+    """3-parameter LM: find t minimizing ||p - project(pw + t)|| over valid
+    points (per lane, where the inputs have a lane axis)."""
     if mask is None:
-        mask = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+        mask = torch.ones(p.shape[:-1], dtype=torch.bool, device=p.device)
     residual, nvalid, dscale = _masked_residual(
-        intr, p, mask, lambda x: project_camera_points(intr, pw + x)
+        intr, p, mask, lambda x: project_camera_points(intr, pw + x.unsqueeze(-2))
     )
     return lm_solve(
         residual,
@@ -344,7 +352,7 @@ def plate_pose_candidates(
 
 
 def _norm_rows(d):
-    return torch.sqrt(torch.sum(d * d, dim=1))
+    return torch.sqrt(torch.sum(d * d, dim=-1))
 
 
 def estimate_world_camera_pose(
@@ -361,16 +369,20 @@ def estimate_world_camera_pose(
 
     find_R=True: 6-DoF solve from x0=[dcm2rpy(R0), t0]. find_R=False: hold R0,
     solve the translation of ``p3``, with the robust second pass of the JAX
-    twin (reject > sigma*rms outliers only when the first pass is bad).
+    twin (reject > sigma*rms outliers only when the first pass is bad); it
+    alone takes lanes (``p`` (V, N, 2), one R0 for all).
     """
     dtype = p.dtype
     dev = p.device
+    lead = p.shape[:-2]
     if t0 is None:
-        t0 = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev)
+        t0 = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev).expand(lead + (3,))
     if R0 is None:
         R0 = torch.eye(3, dtype=dtype, device=dev)
     if mask is None:
-        mask = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+        mask = torch.ones(p.shape[:-1], dtype=torch.bool, device=dev)
+    if find_R and lead:
+        raise ValueError("estimate_world_camera_pose: lanes take find_R=False only")
 
     if find_R:
         x0 = torch.cat([matrix_to_rpy(R0), t0])
@@ -383,20 +395,20 @@ def estimate_world_camera_pose(
         if config.pose_reject_sigma > 0 and config.pose_reject_above_px > 0:
             proj1 = world_to_image(intr, R.to(dtype), res.x.to(dtype), p3)
             err1 = torch.where(mask, _norm_rows(p - proj1), 0.0)
-            nv1 = torch.clamp(torch.sum(mask), min=1)
-            rms1 = torch.sqrt(torch.sum(err1 * err1) / nv1)
+            nv1 = torch.clamp(torch.sum(mask, dim=-1), min=1)
+            rms1 = (torch.sqrt(torch.sum(err1 * err1, dim=-1) / nv1))[..., None]
             bad = rms1 > config.pose_reject_above_px
             keep = err1 <= config.pose_reject_sigma * rms1
             mask2 = mask & (keep | ~bad)
             # never reject below a minimum support (the solver needs >= 3 lanes)
-            mask2 = torch.where(torch.sum(mask2) >= 8, mask2, mask)
+            mask2 = torch.where(torch.sum(mask2, dim=-1)[..., None] >= 8, mask2, mask)
             res = solve_translation(intr, p, p3, res.x, mask2, config)
             mask = mask2
         t = res.x.to(dtype)
 
     p_proj = world_to_image(intr, R.to(dtype), t, p3)
-    m = mask[:, None].to(dtype)
+    m = mask[..., None].to(dtype)
     err = (p - p_proj) * m
-    nvalid = torch.clamp(2.0 * torch.sum(mask), min=1.0)
-    rms = torch.sqrt(torch.sum(err * err) / nvalid)
+    nvalid = torch.clamp(2.0 * torch.sum(mask, dim=-1), min=1.0)
+    rms = torch.sqrt(torch.sum(err * err, dim=(-2, -1)) / nvalid)
     return PoseResult(t=t, R=R, residual_rms=rms, p_proj=p_proj, iterations=res.iterations)

@@ -42,13 +42,17 @@ def window_index(x0, y0, size: int):
     return ((y0.long()[:, None] + ar)[:, :, None], (x0.long()[:, None] + ar)[:, None, :])
 
 
-def gather_bound_ms(img, rows, cols, extra_bytes: int):
+def gather_bound_ms(img, rows, cols, extra_bytes: int, lane=None):
     """Bound of a window gather (K2, K3) from ``img`` at the windows of
     ``window_index``: the distinct pixels the windows cover, read once,
-    plus every output word written once and ``extra_bytes``."""
-    H, W = img.shape
-    covered = torch.zeros(H * W, dtype=torch.bool, device=img.device)
-    covered[(rows * W + cols).reshape(-1)] = True
+    plus every output word written once and ``extra_bytes``. For a stack
+    ``img`` (V, H, W), ``lane`` (N,) gives each window's image."""
+    H, W = img.shape[-2:]
+    covered = torch.zeros(img.numel(), dtype=torch.bool, device=img.device)
+    offset = rows * W + cols
+    if lane is not None:
+        offset = offset + (lane.long() * (H * W))[:, None, None]
+    covered[offset.reshape(-1)] = True
     n_out = rows.shape[0] * rows.shape[1] * cols.shape[2]
     return bound_ms(4 * (int(covered.sum()) + n_out) + extra_bytes, 0)
 
