@@ -8,9 +8,9 @@ sm_90a, one process per source; a K1 instantiation that spills fails),
 holds each kernel against its plain PyTorch version at the shapes of the
 main paths (K1 also at its edge cases and, with points up to and past the
 image's edges, at every pyramid level of a 4032x3024 still; K2 and K3 with
-corners past every side, K2 also on a still and on a stack of three 1080p
-frames, one launch for all, beside three 2-D launches; each beside its
-launch floor, the same call at size 1), then
+corners past every side, K2 also on a still, K2 and K3 also on a stack of
+three frames, one launch for all, beside three 2-D launches; each beside
+its launch floor, the same call at size 1), then
 drives the paths below on a 1920x1080, 20-frame synthetic clip with the default
 widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 
@@ -37,12 +37,15 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 - phase ``multivideo``: ``run_batch`` over three 1080p clips of 20 frames
   (``render_lanes``; lane 0 is the clip above), one batched frame step per
   frame for the three lanes, then the three single scan runner runs of the
-  same clips: each lane and each single run against its truth and the JAX
-  CPU lane, lane 0's track history against its single run's, the batch's
-  K1 and K2 launches against the largest single run's (at most
-  ``BATCH_LAUNCH_RATIO`` times), each MSV's iterations, and the batch's
-  warm wall beside the single runs' summed walls, whole and less the host
-  MSV;
+  same clips, with the lanes LK engine and then with ``lk_backend="fast"``
+  (K3 on the frame stack): each lane and each single run against its truth
+  and the JAX CPU lane, lane 0's track history against its single run's,
+  the batch's K1 and K2 (fast: K3) launches against the largest single
+  run's (at most ``BATCH_LAUNCH_RATIO`` times), each MSV's iterations, and
+  the batch's warm wall beside the single runs' summed walls, whole and
+  less the host MSV; between the two, ``run_batch`` with
+  ``shard_features=2`` over segment A, bit-equal to the unsharded batch;
+  then the gather LK engine on two lanes, bit-equal to per-lane calls;
 - phase ``parallel`` (in-process shards on the one card, axis sizes 1 and
   2): ``ba_schur_sharded`` against ``ba_schur`` at 20 cameras x 1024
   tracks, ``windowed_ba`` at 4 windows x 16 cameras x 1024 tracks with
@@ -114,7 +117,8 @@ ROOT = Path(__file__).resolve().parent
 JAX_CPU_SPEED_KMH = {"lanes": 39.9964228614167, "fast": 39.996056468425444,
                      "driver": 39.97982552569373, "ba": 40.00776387593297,
                      "stills": 40.003800868446476,
-                     "batch": (39.996420154372416, 29.970769718057525, 49.89378033906219)}
+                     "batch": (39.996420154372416, 29.970769718057525, 49.89378033906219),
+                     "batch_fast": (39.99605917543492, 29.98080208303771, 49.88280843919886)}
 # mean residuals (px) of JAX's run_batch lanes (the same runs). Lanes 1 and
 # 2 are clips on which the MSV solve stops at its iteration cap, in both
 # packages (phase multivideo prints the counts), and the structure it leaves
@@ -122,6 +126,9 @@ JAX_CPU_SPEED_KMH = {"lanes": 39.9964228614167, "fast": 39.996056468425444,
 # lane or single run, is held to JAX's residual on its lane within this margin
 JAX_CPU_BATCH_RESIDUAL_PX = (0.06572684273123741, 1.3208546148318994, 0.9673360944970658)
 BATCH_RESIDUAL_VS_JAX_PX = 0.1
+# the same for JAX's run_batch with lk_backend="fast" over the same clips
+# (scripts/jax_reference_speeds.py batch_fast; speeds in JAX_CPU_SPEED_KMH)
+JAX_CPU_BATCH_FAST_RESIDUAL_PX = (0.0661481854162718, 1.2221809983939718, 0.9195013864848175)
 # JAX's LongVideoRunner on the first LONG_FRAMES frames of the clip (window 16,
 # overlap 3, BA refinement; scripts/jax_reference_speeds.py longvideo)
 JAX_CPU_LONGVIDEO_KMH = 39.57521730613294
@@ -142,7 +149,7 @@ SPEED_VS_JAX = 0.02
 MAX_RESIDUAL_PX = 1.0
 N_POINTS = 1024
 N_FRAMES = 20
-PROFILE_FRAMES = 5  # the profiled runs: reading a 20-frame trace takes minutes
+PROFILE_FRAMES = 3  # the profiled runs: reading a 5-frame fast trace takes 42 s
 BENCH_REPS = 3  # phase bench: timed runs after the warm-up (bench_torch.REPS is 5)
 ALWAYS_RESCUE = 10**6  # min_affine_inliers that sends every frame through the rescue
 # bundle adjustment on the card: the windowed size (cameras, tracks), the
@@ -187,6 +194,12 @@ K1_EDGES = (("n", 15, 24, 8, False, 1), ("n", 15, 24, 8, False, 1020),
 # (P 70) on the frame, the warped slabs (Q 82) on the frame padded by 82
 K3_CASES = (("P34 frame", 1080, 1920, 34), ("P34 top level", 17, 30, 34),
             ("P70 frame", 1080, 1920, 70), ("Q82 padded frame", 1244, 2084, 82))
+# K3 on a stack (run_batch's fast engine): the K3_CASES labels it runs at,
+# SLAB_LANES frames of N_POINTS points each
+K3_BATCHED_CASES = ("P34 frame", "Q82 padded frame")
+# the gather engine's check on the card: lk_forward_backward on a stack of
+# the first two lanes' frame pairs (stage 2's window, levels and gate)
+GATHER_LK = dict(win=15, max_level=4, iters=10, eps=0.03, fb_threshold=1.0)
 
 
 def phase_device():
@@ -319,7 +332,8 @@ def phase_k2(dev):
         corners = _corners_with_outsiders(g, H, W, S, N, lo=0)
         rows.append(_gather_case(f"K2 S={S}", k2.extract_slabs, k2.extract_slabs_ref, img,
                                  corners, S))
-    rows += _k2_batched(dev, g, img)
+    rows += _gather_batched(dev, g, "K2", k2.extract_slabs, k2.extract_slabs_ref,
+                            [(H, W, S) for S in SLAB_BATCHED_SIZES], img=img)
     still = torch.rand(STILLS_SIZE[::-1], generator=g, device=dev) * 255
     for label, im, lo in (("still padded by 72", _pad_edge(still, 72), 0),
                           ("unpadded still", still, None)):
@@ -332,37 +346,37 @@ def phase_k2(dev):
     return rows
 
 
-def _k2_batched(dev, g, img):
-    """K2 on a stack of SLAB_LANES padded 1080p frames (``img`` and fresh
-    ones), N_POINTS points per frame, at SLAB_BATCHED_SIZES: one launch
-    against the plain version, bit-equal; its time beside the bound over
-    the frames' windows and beside one 2-D launch per frame."""
-    from velocity_tpu_torch.ops import slab_pallas as k2
-
-    imgs = torch.stack([img] + [torch.rand(img.shape, generator=g, device=dev) * 255
-                                for _ in range(SLAB_LANES - 1)])
-    H, W = img.shape
+def _gather_batched(dev, g, name, fn, ref, shapes, img=None):
+    """A window gather (K2 or K3) on a stack of SLAB_LANES frames (``img``,
+    where given, and fresh ones), N_POINTS points per frame, at each
+    (H, W, size) of ``shapes``: one launch against the plain version,
+    bit-equal; its time beside the bound over the frames' windows and
+    beside one 2-D launch per frame."""
     n = N_POINTS
     lane = torch.arange(SLAB_LANES * n, device=dev) // n
     rows = []
-    for S in SLAB_BATCHED_SIZES:
-        corners = torch.cat([_corners_with_outsiders(g, H, W, S, n, lo=0)
+    for H, W, S in shapes:
+        imgs = torch.stack(([img] if img is not None else [])
+                           + [torch.rand((H, W), generator=g, device=dev) * 255
+                              for _ in range(SLAB_LANES - (img is not None))])
+        lo = 0 if name == "K2" else -(S // 2)
+        corners = torch.cat([_corners_with_outsiders(g, H, W, S, n, lo=lo)
                              for _ in range(SLAB_LANES)])
-        label = f"K2 batched V={SLAB_LANES} S={S}"
-        want_cl = _gather_check(label, k2.extract_slabs, k2.extract_slabs_ref, imgs, corners, S)
+        label = f"{name} batched V={SLAB_LANES} S={S}"
+        want_cl = _gather_check(label, fn, ref, imgs, corners, S)
         per_lane = [corners[v * n:(v + 1) * n].contiguous() for v in range(SLAB_LANES)]
         r_idx, c_idx = _window_index(want_cl[:, 0], want_cl[:, 1], S)
-        ms = cuda_ms(lambda: k2.extract_slabs(imgs, corners, S))
-        lanes_ms = cuda_ms(lambda: [k2.extract_slabs(imgs[v], per_lane[v], S)
-                                    for v in range(SLAB_LANES)])
-        plain_ms = cuda_ms(lambda: k2.extract_slabs_ref(imgs, corners, S))
+        ms = cuda_ms(lambda: fn(imgs, corners, S))
+        lanes_ms = cuda_ms(lambda: [fn(imgs[v], per_lane[v], S) for v in range(SLAB_LANES)])
+        plain_ms = cuda_ms(lambda: ref(imgs, corners, S))
         library_ms = cuda_ms(lambda: imgs[lane[:, None, None], r_idx, c_idx])
         bound_ms, bound_by = _gather_bound(imgs, r_idx, c_idx, extra_bytes=16 * len(lane),
                                            lane=lane)
         print(f"{label} ({SLAB_LANES}x{H}x{W}, N={len(lane)}): bit-equal, corners equal; "
               f"kernel {ms:.4f} ms, {SLAB_LANES} 2-D launches {lanes_ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, one gather call {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-              f"({bound_by}); {bound_ms / ms:.0%} of the bound's rate")
+              f"({bound_by}); {bound_ms / ms:.0%} of the bound's rate, "
+              f"{ms / lanes_ms:.2f}x the 2-D launches")
         rows.append(dict(label=label, size=S, N=len(lane), lanes=SLAB_LANES, max_abs_err=0.0,
                          ms=ms, lanes_2d_ms=lanes_ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
@@ -387,7 +401,9 @@ def phase_k3(dev):
         corners = _corners_with_outsiders(g, Hp, Wp, size, N_POINTS, lo=-(size // 2))
         rows.append(_gather_case(f"K3 {label}", k3.extract_patches, k3.extract_patches_ref,
                                  img, corners, size))
-    return rows
+    return rows + _gather_batched(dev, g, "K3", k3.extract_patches, k3.extract_patches_ref,
+                                  [(H, W, size) for label, H, W, size in K3_CASES
+                                   if label in K3_BATCHED_CASES])
 
 
 def _k1_case(dev, win, P, n_taps, cubic, it0, seed=0, N=N_POINTS, size=(1920, 1080),
@@ -984,41 +1000,61 @@ def _recording_msv(calls):
     return undo
 
 
-def phase_multivideo(dev, clip):
-    """run_batch over the three clips of render_lanes (lane 0 is ``clip``),
-    counted, then the three single scan-runner runs of the same clips,
-    counted each: the walls in turns (batch, then singles), whole and less
-    each run's host MSV (the batch's MSV, the single runs' re-anchor), and
-    each MSV's iterations and residual. Each run within the speed limits and
-    within BATCH_RESIDUAL_VS_JAX_PX of JAX's residual on its lane; lane 0's
-    track history bit-equal to its single run's. A warm-up run_batch of
-    segment A alone (no host MSV) runs first, as the single runs come warm
-    from the earlier phases. run_batch steps all three
-    lanes at once (one batched frame step per frame, ``timings["lanes_path"]``
-    "batched"), so its K1 and K2 launches are at most BATCH_LAUNCH_RATIO
-    times the largest single run's, not their sum. Lanes v > 0 draw from
-    seed v (JAX's run_batch draws lane v from PRNGKey(v)), so their RANSAC
-    hypotheses, and with them a few LK blocks, differ from their single
-    runs'. Returns the batch's launches."""
-    from velocity_tpu_torch.config import PipelineConfig, SolverConfig
-    from velocity_tpu_torch.pipeline.multivideo import BATCHED, run_batch
-    from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
-    from velocity_tpu_torch.testing.synthetic_clip import render_lanes
+def _recording_segments(calls):
+    """Patch run_batch's ``scan_segment`` so that each call appends the
+    number of lanes it stepped (0 for a call without a lane axis) to
+    ``calls``; returns a function that undoes the patch."""
+    from velocity_tpu_torch.pipeline import multivideo
 
-    t0 = time.perf_counter()
-    lanes = render_lanes(clip)
-    print(f"multivideo: lanes 1..{len(lanes) - 1} rendered in {time.perf_counter() - t0:.1f} s, "
-          f"true speeds {[round(c.speed_kmh, 4) for c in lanes]} km/h")
-    cfg = PipelineConfig(solver=SolverConfig(dtype="float32"))
+    real = multivideo.scan_segment
+
+    def recording(*args, **kwargs):
+        pts0 = args[3]
+        calls.append(pts0.shape[0] if pts0.dim() == 3 else 0)
+        return real(*args, **kwargs)
+
+    multivideo.scan_segment = recording
+
+    def undo():
+        multivideo.scan_segment = real
+
+    return undo
+
+
+def _batch_and_singles(dev, name, lanes, cfg, path_kernels):
+    """run_batch of ``cfg`` over ``lanes``, counted, then the single
+    scan-runner runs of the same clips, counted each: the walls in turns
+    (batch, then singles), whole and less each run's host MSV (the batch's
+    MSV, the single runs' re-anchor), and each MSV's iterations and
+    residual. A warm-up run_batch of segment A alone (no host MSV) runs
+    first, counted, as the single runs come warm from the earlier phases.
+    Each run within the speed limits and within BATCH_RESIDUAL_VS_JAX_PX of
+    JAX's residual on its lane (JAX_CPU_SPEED_KMH[name]); run_batch steps
+    each segment of all lanes as one call, so each of ``path_kernels`` but
+    K2 (which each lane's frame-0 init launches once) launches at most
+    BATCH_LAUNCH_RATIO times the largest single run's, not their sum; lane
+    0's track history is bit-equal to its single run's. Lanes v > 0 draw
+    from seed v (JAX's run_batch draws lane v from PRNGKey(v)), so their
+    RANSAC hypotheses, and with them a few LK blocks, differ from their
+    single runs'. Returns (the batch's launches, the warm-up's results and
+    launches)."""
+    from velocity_tpu_torch.pipeline.multivideo import run_batch
+    from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
+
+    jax_kmh = JAX_CPU_SPEED_KMH[name]
+    jax_res = JAX_CPU_BATCH_RESIDUAL_PX if name == "batch" else JAX_CPU_BATCH_FAST_RESIDUAL_PX
     runner = ScanSpeedRunner(cfg, device=dev)
-    msv_batch, msv_single = [], []
+    msv_batch, msv_single, segments = [], [], []
     kw = dict(annotations=[c.annotation for c in lanes], config=cfg, device=dev, verbose=False)
+    _reset_counts()
     t = time.perf_counter()
-    run_batch([c.reader for c in lanes], n_frames=cfg.msv_frame, **kw)  # warm-up: no MSV
-    print(f"multivideo: warm-up run_batch of frames 0..{cfg.msv_frame - 1} "
-          f"{time.perf_counter() - t:.3f} s")
+    warm = run_batch([c.reader for c in lanes], n_frames=cfg.msv_frame, **kw)  # no MSV
+    warm_counts, _ = _read_counts()
+    print(f"multivideo {name}: warm-up run_batch of frames 0..{cfg.msv_frame - 1} "
+          f"{time.perf_counter() - t:.3f} s, launches {warm_counts}")
 
     undo = _recording_msv(msv_batch)
+    undo_seg = _recording_segments(segments)
     try:
         _reset_counts()
         t = time.perf_counter()
@@ -1027,6 +1063,7 @@ def phase_multivideo(dev, clip):
         wall_b = time.perf_counter() - t
         launches, _ = _read_counts()
     finally:
+        undo_seg()
         undo()
     single, single_counts = [], []
     undo = _recording_msv(msv_single)
@@ -1043,46 +1080,160 @@ def phase_multivideo(dev, clip):
     msv_s = sum(r.timings["msv_s"] for r in single)
     most = {k: max(c[k] for c in single_counts) for k in launches}
     cap = cfg.solver.max_iters_msv
-    print(f"multivideo: run_batch of {len(lanes)} lanes x {N_FRAMES} frames warm wall "
+    shown = " ".join(f"{k} {launches[k]}" for k in path_kernels)
+    shown_single = " ".join(f"{k} {[c[k] for c in single_counts]}" for k in path_kernels)
+    print(f"multivideo {name}: run_batch of {len(lanes)} lanes x {N_FRAMES} frames warm wall "
           f"{wall_b:.3f} s, of it host MSV {msv_b:.3f} s, the rest {wall_b - msv_b:.3f} s; the "
           f"three single scan-runner runs {wall_s:.3f} s, of it re-anchor {msv_s:.3f} s, the "
           f"rest {wall_s - msv_s:.3f} s (in turns: batch, then singles); the rest's ratio "
-          f"{(wall_b - msv_b) / (wall_s - msv_s):.3f}; path {res[0].timings['lanes_path']}; "
-          f"launches K1 "
-          f"{launches['lk_block']} K2 {launches['extract_slabs']}; the single runs' K1 "
-          f"{[c['lk_block'] for c in single_counts]} K2 "
-          f"{[c['extract_slabs'] for c in single_counts]}")
+          f"{(wall_b - msv_b) / (wall_s - msv_s):.3f}; segment calls (lanes each) {segments}; "
+          f"launches {shown}; the single runs' {shown_single}")
     if len(msv_batch) != len(lanes) or len(msv_single) != len(lanes):
-        raise AssertionError(f"multivideo: {len(msv_batch)} batch and {len(msv_single)} single "
-                             f"MSV solves for {len(lanes)} lanes")
-    for v, (r, c, s, jax_kmh, jax_res, mb, ms) in enumerate(zip(
-            res, lanes, single, JAX_CPU_SPEED_KMH["batch"], JAX_CPU_BATCH_RESIDUAL_PX,
-            msv_batch, msv_single)):
-        print(f"multivideo lane {v}: speed {r.speed_kmh:.4f} km/h (true {c.speed_kmh:.4f}, JAX "
-              f"CPU run_batch {jax_kmh}, single scan runner {s.speed_kmh:.4f}), residual "
-              f"{r.residual_px:.4f} px (JAX CPU {jax_res:.4f}, single {s.residual_px:.4f}); "
-              f"host MSV {r.timings['msv_s']:.3f} s, {mb[0]} iterations of {cap}, rms "
-              f"{mb[1]:.4f} px (single run's re-anchor {s.timings['msv_s']:.3f} s, its MSV "
-              f"{ms[0]} iterations, rms {ms[1]:.4f} px)")
-        limit = jax_res + BATCH_RESIDUAL_VS_JAX_PX
-        _check_run(f"multivideo lane {v}", r, c, launches, ("lk_block", "extract_slabs"),
-                   jax_kmh, limit)
-        _check_run(f"multivideo single run {v}", s, c, single_counts[v],
-                   ("lk_block", "extract_slabs"), jax_kmh, limit)
-    if res[0].timings["lanes_path"] != BATCHED:
-        raise AssertionError(f"multivideo: run_batch took the {res[0].timings['lanes_path']} "
-                             f"path, not the batched one")
-    over = {k: (launches[k], most[k]) for k in ("lk_block", "extract_slabs")
-            if launches[k] > BATCH_LAUNCH_RATIO * most[k]}
+        raise AssertionError(f"multivideo {name}: {len(msv_batch)} batch and {len(msv_single)} "
+                             f"single MSV solves for {len(lanes)} lanes")
+    if segments != [len(lanes)] * 2:
+        raise AssertionError(f"multivideo {name}: segment calls {segments}, not one call of "
+                             f"all {len(lanes)} lanes per segment")
+    for v, (r, c, s, jkmh, jres, mb, ms) in enumerate(zip(
+            res, lanes, single, jax_kmh, jax_res, msv_batch, msv_single)):
+        print(f"multivideo {name} lane {v}: speed {r.speed_kmh:.4f} km/h (true "
+              f"{c.speed_kmh:.4f}, JAX CPU run_batch {jkmh}, single scan runner "
+              f"{s.speed_kmh:.4f}), residual {r.residual_px:.4f} px (JAX CPU {jres:.4f}, single "
+              f"{s.residual_px:.4f}); host MSV {r.timings['msv_s']:.3f} s, {mb[0]} iterations of "
+              f"{cap}, rms {mb[1]:.4f} px (single run's re-anchor {s.timings['msv_s']:.3f} s, its "
+              f"MSV {ms[0]} iterations, rms {ms[1]:.4f} px)")
+        limit = jres + BATCH_RESIDUAL_VS_JAX_PX
+        _check_run(f"multivideo {name} lane {v}", r, c, launches, path_kernels, jkmh, limit)
+        _check_run(f"multivideo {name} single run {v}", s, c, single_counts[v], path_kernels,
+                   jkmh, limit)
+    held = [k for k in path_kernels if k != "extract_slabs" or name == "batch"]
+    over = {k: (launches[k], most[k]) for k in held if launches[k] > BATCH_LAUNCH_RATIO * most[k]}
     if over:
-        raise AssertionError(f"multivideo: batch launches above {BATCH_LAUNCH_RATIO} x the "
-                             f"largest single run's (batch, single): {over}")
+        raise AssertionError(f"multivideo {name}: batch launches above {BATCH_LAUNCH_RATIO} x "
+                             f"the largest single run's (batch, single): {over}")
     same = (np.array_equal(res[0].track_px, single[0].track_px, equal_nan=True)
             and np.array_equal(res[0].valid, single[0].valid))
-    print(f"multivideo: lane 0's track history bit-equal to the single run's: {same}")
+    print(f"multivideo {name}: lane 0's track history bit-equal to the single run's: {same}")
+    if name == "batch_fast":
+        _sample_patches_lanes(dev)
     if not same:
-        raise AssertionError("multivideo: lane 0's tracks differ from the single scan runner's")
-    return launches
+        raise AssertionError(f"multivideo {name}: lane 0's tracks differ from the single "
+                             f"scan runner's")
+    return launches, warm, warm_counts
+
+
+def _sample_patches_lanes(dev):
+    """Whether ``interp.sample_patches`` over SLAB_LANES x N_POINTS patches
+    (one cuBLAS bmm, as the fast batch runs it) gives each lane's per-lane
+    call, at the fast engine's shapes (P 34 -> win 15 linear, P 70 -> win
+    51 cubic): where it does not, the fast batch's lanes may leave their
+    single runs' bits; printed."""
+    from velocity_tpu_torch.ops.interp import sample_patches
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    n = N_POINTS
+    for P, win, cubic in ((34, 15, False), (70, 51, True)):
+        patches = torch.rand((SLAB_LANES * n, P, P), generator=g, device=dev) * 255
+        dy, dx = (torch.rand(SLAB_LANES * n, generator=g, device=dev) * (P - win) for _ in "yx")
+        got = sample_patches(patches, dy, dx, win, cubic=cubic)
+        want = torch.cat([sample_patches(patches[v * n:(v + 1) * n], dy[v * n:(v + 1) * n],
+                                         dx[v * n:(v + 1) * n], win, cubic=cubic)
+                          for v in range(SLAB_LANES)])
+        print(f"multivideo: sample_patches P {P} -> {win} over {SLAB_LANES} x {n} patches "
+              f"bit-equal to per-lane calls: {torch.equal(got, want)}, max |diff| "
+              f"{float((got - want).abs().max()):.3e}")
+
+
+def _gather_lanes(dev, lanes):
+    """The gather LK engine (``ops/lk.py:lk_forward_backward``) on the card,
+    its first run there: the first two lanes' frames 0 -> 1 stacked, N_POINTS
+    features per lane at GATHER_LK, without a warp and with each clip's
+    motion as one warp per lane; bit-equal to per-lane calls."""
+    from velocity_tpu_torch.config import PipelineConfig
+    from velocity_tpu_torch.ops.lk import lk_forward_backward
+    from velocity_tpu_torch.pipeline.speedest import _init_features
+
+    pcfg = PipelineConfig()
+    two = lanes[:2]
+    frames = [torch.as_tensor(c.reader.grays[:2]).to(dev) for c in two]
+    src = torch.stack([f[0] for f in frames]).float()
+    dst = torch.stack([f[1] for f in frames]).float()
+    pts = torch.stack([torch.as_tensor(_init_features(pcfg, f[0], c.annotation.q
+                                                      * pcfg.native_scale)[0], device=dev)
+                       for f, c in zip(frames, two)])
+    warp = torch.stack([torch.as_tensor(c.motion_affine(0, 1), dtype=torch.float32, device=dev)
+                        for c in two])
+    n = pts.shape[1]
+    for form, M in (("no warp", None), ("one warp per lane", warp)):
+        t = time.perf_counter()
+        got = lk_forward_backward(src, dst, pts.reshape(-1, 2), warp_dst=M, **GATHER_LK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        same = True
+        for v in range(len(two)):
+            one = lk_forward_backward(src[v], dst[v], pts[v], **GATHER_LK,
+                                      warp_dst=None if M is None else M[v])
+            same &= (torch.equal(got.points[v * n:(v + 1) * n], one.points)
+                     and torch.equal(got.status[v * n:(v + 1) * n], one.status))
+        print(f"multivideo: gather LK engine, {len(two)} lanes x {n} points, 1080p, {form}: "
+              f"bit-equal to per-lane calls: {same}, {int(got.status.sum())} tracked, "
+              f"{wall:.3f} s")
+        if not same:
+            raise AssertionError(f"gather LK engine ({form}): lanes differ from per-lane calls")
+
+
+def phase_multivideo(dev, clip):
+    """run_batch over the three clips of render_lanes (lane 0 is ``clip``)
+    beside the three single scan-runner runs (``_batch_and_singles``), with
+    the lanes LK engine and then with the fast one (K3 on the frame stack);
+    between the two, run_batch with shard_features=2 (in-process shards on
+    the card) over segment A, bit-equal lane by lane to the lanes batch's
+    warm-up over the same frames, its K1 and K2 launches beside the
+    warm-up's; then the gather engine on two lanes (``_gather_lanes``).
+    Returns the launches of each counted batch by path."""
+    from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
+    from velocity_tpu_torch.pipeline.multivideo import run_batch
+    from velocity_tpu_torch.testing.synthetic_clip import render_lanes
+
+    t0 = time.perf_counter()
+    lanes = render_lanes(clip)
+    print(f"multivideo: lanes 1..{len(lanes) - 1} rendered in {time.perf_counter() - t0:.1f} s, "
+          f"true speeds {[round(c.speed_kmh, 4) for c in lanes]} km/h")
+    solver = SolverConfig(dtype="float32")
+    cfg = PipelineConfig(solver=solver)
+    launches, warm, warm_counts = _batch_and_singles(dev, "batch", lanes, cfg,
+                                                     ("lk_block", "extract_slabs"))
+
+    scfg = PipelineConfig(solver=solver, tracker=TrackerConfig(shard_features=2))
+    segments = []
+    undo = _recording_segments(segments)
+    try:
+        _reset_counts()
+        t = time.perf_counter()
+        sharded = run_batch([c.reader for c in lanes], annotations=[c.annotation for c in lanes],
+                            n_frames=cfg.msv_frame, config=scfg, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        sharded_counts, _ = _read_counts()
+    finally:
+        undo()
+    same = all(np.array_equal(g.track_px, w.track_px, equal_nan=True)
+               and np.array_equal(g.valid, w.valid) for g, w in zip(sharded, warm))
+    print(f"multivideo: run_batch shard_features=2 of frames 0..{cfg.msv_frame - 1}: "
+          f"{wall:.3f} s, segment calls (lanes each) {segments}, launches K1 "
+          f"{sharded_counts['lk_block']} K2 {sharded_counts['extract_slabs']} (unsharded "
+          f"warm-up K1 {warm_counts['lk_block']} K2 {warm_counts['extract_slabs']}); tracks "
+          f"and validity bit-equal to the unsharded batch, lane by lane: {same}")
+    if not same or segments != [len(lanes)]:
+        raise AssertionError(f"multivideo: the sharded batch differs from the unsharded one "
+                             f"({same}) or was not one call of all lanes ({segments})")
+
+    fcfg = PipelineConfig(solver=solver, tracker=TrackerConfig(lk_backend="fast"))
+    fast, _, _ = _batch_and_singles(dev, "batch_fast", lanes, fcfg,
+                                    ("extract_patches", "extract_slabs"))
+    _gather_lanes(dev, lanes)
+    return {"multivideo": launches, "multivideo_sharded": sharded_counts,
+            "multivideo_fast": fast}
 
 
 def _rel(a, b) -> float:
@@ -1534,7 +1685,7 @@ def main() -> int:
     k2_main = next(r for r in k2_rows if r["size"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    paths = {"lanes": lanes, "fast": fast, "multivideo": multivideo, "sharded_lk": sharded_lk,
+    paths = {"lanes": lanes, "fast": fast, **multivideo, "sharded_lk": sharded_lk,
              "longvideo": longvideo,
              **surface, "bench": bench}
 
@@ -1562,7 +1713,10 @@ def main() -> int:
          "replaces": "velocity_tpu/ops/patch_pallas.py:62",
          "launches": fast["extract_patches"], "launches_by_path": by_path("extract_patches"),
          "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
-         **{k: k3_main[k] for k in keys}, "library_ms": k3_main["library_ms"]},
+         **{k: k3_main[k] for k in keys}, "library_ms": k3_main["library_ms"],
+         "batched": [{k: r[k] for k in ("lanes", "size", "N", "ms", "lanes_2d_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms")}
+                     for r in k3_rows if "lanes" in r]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Speeds the JAX package recovers on the port's synthetic clip, on the CPU.
 
-    python3 scripts/jax_reference_speeds.py [scan_ba] [driver] [scan] [stills] [batch] [longvideo]
+    python3 scripts/jax_reference_speeds.py [scan_ba] [driver] [scan] [stills] [batch]
+                                            [batch_fast] [longvideo]
 
 Renders the clip ``chip_smoke.py`` drives (seed 0, 1920x1080, 20 frames, 40
 km/h) and runs the JAX package on it with the f32 solver and the default
@@ -13,7 +14,8 @@ smoke run's stills burst (``render_burst`` of
 ``velocity_tpu_torch/testing/synthetic_clip.py``; its ``"stills"`` entry)
 and ``batch`` is ``run_batch`` over the smoke run's three clips
 (``render_lanes``; its ``"batch"`` entry, one speed and residual per
-lane). ``longvideo`` is ``LongVideoRunner.run`` (window 16, overlap 3, BA
+lane), ``batch_fast`` the same with ``lk_backend="fast"`` (its
+``"batch_fast"`` entry and ``JAX_CPU_BATCH_FAST_RESIDUAL_PX``). ``longvideo`` is ``LongVideoRunner.run`` (window 16, overlap 3, BA
 refinement) on the first ``LONG_FRAMES`` frames of the same clip (its
 ``"longvideo"`` entry and ``JAX_CPU_LONGVIDEO_RESIDUAL_PX``).
 Prints one JSON line per run. This is the one script outside the tests that
@@ -46,7 +48,7 @@ import velocity_tpu.pipeline.speedest as speedest  # noqa: E402
 import velocity_tpu.pipeline.stills as stills  # noqa: E402
 from velocity_tpu.camera.annotations import Annotation, save_annotation  # noqa: E402
 from velocity_tpu.camera.database import camera_info  # noqa: E402
-from velocity_tpu.config import PipelineConfig, SolverConfig  # noqa: E402
+from velocity_tpu.config import PipelineConfig, SolverConfig, TrackerConfig  # noqa: E402
 from velocity_tpu.pipeline.scan import ScanSpeedRunner  # noqa: E402
 from velocity_tpu_torch.testing.synthetic_clip import (  # noqa: E402
     LONG_FRAMES, LONG_RUN, STILLS_BURST, render_burst, render_clip, render_lanes)
@@ -115,7 +117,7 @@ def _run_stills(solver):
     return [_result("stills", res, burst.speed_kmh)]
 
 
-def _run_batch(solver):
+def _run_batch(solver, lk_backend="lanes"):
     lanes = render_lanes()
     paths = {f"lane{v}.MOV": c for v, c in enumerate(lanes)}
     multivideo.VideoReader = lambda path, *a, **k: _Reader(paths[path])
@@ -123,9 +125,11 @@ def _run_batch(solver):
         anns = [str(Path(d) / f"{p}.npz") for p in paths]
         for a, c in zip(anns, lanes):
             save_annotation(a, _jax_annotation(c))
+        cfg = PipelineConfig(solver=solver, tracker=TrackerConfig(lk_backend=lk_backend))
         res = multivideo.run_batch(list(paths), annotations=anns, n_frames=N_FRAMES,
-                                   config=PipelineConfig(solver=solver), verbose=False)
-    return [dict(_result("batch", r, c.speed_kmh), lane=v)
+                                   config=cfg, verbose=False)
+    name = "batch" if lk_backend == "lanes" else f"batch_{lk_backend}"
+    return [dict(_result(name, r, c.speed_kmh), lane=v)
             for v, (r, c) in enumerate(zip(res, lanes))]
 
 
@@ -146,11 +150,13 @@ def main(which) -> int:
         "driver": lambda: speedest.SpeedEstimator(PipelineConfig(solver=solver)),
     }
     clip = None
-    for name in which or [*on_clip, "stills", "batch", "longvideo"]:
+    for name in which or [*on_clip, "stills", "batch", "batch_fast", "longvideo"]:
         if name == "stills":
             lines = _run_stills(solver)
         elif name == "batch":
             lines = _run_batch(solver)
+        elif name == "batch_fast":
+            lines = _run_batch(solver, "fast")
         elif name == "longvideo":
             lines = _run_longvideo(solver)
         else:

@@ -313,13 +313,13 @@ _GATHERS = {"k2": k2.extract_slabs, "k3": k3.extract_patches}
 def test_window_wrappers_refuse_bad_inputs(kernel):
     """K2's and K3's wrappers refuse a wrong dtype, shape or size, a
     non-contiguous image or corners, corners on another device, and a
-    device that is neither the CPU nor CUDA. K2 takes a stack of images
-    (V, H, W) whose count divides the points' (K3 no stack): a stack of two
-    for three points is refused."""
+    device that is neither the CPU nor CUDA. Both take a stack of images
+    (V, H, W) whose count divides the points': a stack of two for three
+    points is refused."""
     fn = _GATHERS[kernel]
     img = torch.zeros((40, 50))
     c = torch.zeros((3, 2), dtype=torch.int32)
-    stack = torch.zeros((2, 40, 50)) if kernel == "k2" else img[None]
+    stack = torch.zeros((2, 40, 50))
     bad = ((img.double(), c, 8), (img, c.long(), 8), (img, c[:, :1], 8), (stack, c, 8),
            (img[None, None], c, 8), (img.t(), c, 8), (img, c.t().contiguous().t(), 8),
            (img, c.reshape(-1), 8), (img, c, 41), (img, c, 0), (img, c.to("meta"), 8),
@@ -538,3 +538,37 @@ def test_k3_matches_plain_on_card(cuda_device, size, H, W):
     want, want_cl = k3.extract_patches_ref(img, corners, size)
     assert torch.equal(got_cl, want_cl)
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,H,W", [(34, 1080, 1920), (34, 17, 30),
+                                      (82, 1080 + 2 * 82, 1920 + 2 * 82)])
+def test_k3_batched_matches_plain_on_card(cuda_device, size, H, W):
+    """K3 on a stack of three frames (run_batch's fast engine), 1024 points
+    per frame (point i from frame i // 1024), corners inside and past every
+    side: one launch, bit-equal to its plain version on the stack (the top
+    level padded to the patch frame by frame first), and each frame's
+    points to a 2-D launch on that frame."""
+    V, n = 3, 1024
+    imgs = torch.stack([torch.as_tensor(_slab_image(H=H, W=W, seed=v))
+                        for v in range(V)]).to(cuda_device)
+    g = torch.Generator(device=cuda_device).manual_seed(size)
+    corners = torch.stack([
+        torch.randint(-size, W + size, (V * n,), generator=g, device=cuda_device),
+        torch.randint(-size, H + size, (V * n,), generator=g, device=cuda_device),
+    ], dim=1).to(torch.int32)
+    before = k3.extract_patches.launches
+    got, got_cl = extract_patches(imgs, corners, size)
+    torch.cuda.synchronize()
+    assert k3.extract_patches.launches == before + 1
+    if H < size or W < size:
+        imgs = torch.nn.functional.pad(imgs[:, None], (0, max(0, size - W), 0,
+                                                       max(0, size - H)),
+                                       mode="replicate")[:, 0].contiguous()
+    want, want_cl = k3.extract_patches_ref(imgs, corners, size)
+    assert torch.equal(got_cl, want_cl)
+    assert torch.equal(got, want)
+    for v in range(V):
+        one, one_cl = k3.extract_patches(imgs[v], corners[v * n:(v + 1) * n].contiguous(), size)
+        assert torch.equal(got[v * n:(v + 1) * n], one)
+        assert torch.equal(got_cl[v * n:(v + 1) * n], one_cl)

@@ -79,10 +79,14 @@ def test_extract_patches_pads_small_images():
 
 
 def test_k3_wrapper_refuses_bad_inputs():
+    """K3 takes an image or a stack (V, H, W) whose count divides the
+    points': a stack of two for three points, and a 4-D image, are refused,
+    as are wrong dtypes, shapes, sizes, layouts and devices."""
     img = torch.zeros((40, 50))
     c = torch.zeros((3, 2), dtype=torch.int32)
     for bad_img, bad_c, size in ((img.double(), c, 8), (img, c.long(), 8), (img, c[:, :1], 8),
-                                 (img.t(), c, 8), (img, c, 41), (img[None], c, 8),
+                                 (img.t(), c, 8), (img, c, 41), (torch.zeros((2, 40, 50)), c, 8),
+                                 (img[None, None], c, 8),
                                  (img, c.t().contiguous().t(), 8), (img, c.to("meta"), 8)):
         with pytest.raises(ValueError):
             k3.extract_patches(bad_img, bad_c, size)

@@ -49,8 +49,7 @@ def _annotations(clips):
     return [c.annotation for c in clips]
 
 
-@pytest.fixture(scope="module")
-def jax_batch(clips, tmp_path_factory):
+def _jax_batch(clips, directory, jcfg):
     """JAX's run_batch over both clips, with the inputs of each lane's MSV
     solve recorded. Returns (results, [(args, kwargs, MSVResult)])."""
     mp = pytest.MonkeyPatch()
@@ -66,18 +65,28 @@ def jax_batch(clips, tmp_path_factory):
         return out
 
     mp.setattr(jax_multivideo, "msv_refine_translation", recording_msv)
-    d = tmp_path_factory.mktemp("ann")
     anns = []
     for name, c in paths.items():
         a = c.annotation
-        anns.append(str(d / f"{name}.npz"))
+        anns.append(str(directory / f"{name}.npz"))
         jax_save_annotation(anns[-1], JaxAnnotation(a.q, a.fname, a.start_frame))
     try:
         res = jax_multivideo.run_batch(list(paths), annotations=anns, n_frames=N_FRAMES,
-                                       config=_jcfg(), verbose=False)
+                                       config=jcfg, verbose=False)
     finally:
         mp.undo()
     return res, calls
+
+
+@pytest.fixture(scope="module")
+def jax_batch(clips, tmp_path_factory):
+    return _jax_batch(clips, tmp_path_factory.mktemp("ann"), _jcfg())
+
+
+@pytest.fixture(scope="module")
+def jax_batch_fast(clips, tmp_path_factory):
+    """JAX's run_batch with lk_backend="fast" (JAX vmaps its fast engine)."""
+    return _jax_batch(clips, tmp_path_factory.mktemp("ann_fast"), _jcfg("fast"))
 
 
 def _segment_recorder(mp):
@@ -99,8 +108,7 @@ def _segment_recorder(mp):
     return calls
 
 
-@pytest.fixture(scope="module")
-def port_batch(clips):
+def _port_batch(clips, cfg):
     """The port's run_batch on the CPU with JAX's noise (lane v's from
     PRNGKey(v), frame by frame), with its segment calls recorded. Returns
     (results, calls)."""
@@ -109,9 +117,19 @@ def port_batch(clips):
         _inject_lanes(mp, draws)
         calls = _segment_recorder(mp)
         out = run_batch([c.reader for c in clips], annotations=_annotations(clips),
-                        n_frames=N_FRAMES, config=_cfg(), device="cpu", verbose=False)
+                        n_frames=N_FRAMES, config=cfg, device="cpu", verbose=False)
         assert not any(draws)
     return out, calls
+
+
+@pytest.fixture(scope="module")
+def port_batch(clips):
+    return _port_batch(clips, _cfg())
+
+
+@pytest.fixture(scope="module")
+def port_batch_fast(clips):
+    return _port_batch(clips, _cfg("fast"))
 
 
 @pytest.fixture(scope="module")
@@ -126,12 +144,10 @@ def scan_run(clips):
     return out
 
 
-def test_run_batch_matches_jax(clips, jax_batch, port_batch):
-    """run_batch on JAX's noise: each lane's speed within 0.5% of JAX's
-    lane, its translations within 1e-3 relative, equal validity on >= 99%
-    of the track history; each lane within 15% of its truth."""
-    want, _ = jax_batch
-    got, _ = port_batch
+def _matches_jax(got, want, clips):
+    """Each lane's speed within 0.5% of JAX's lane, its translations within
+    1e-3 relative, equal validity on >= 99% of the track history; each lane
+    within 15% of its truth."""
     assert len(got) == len(want) == 2
     for g, w, c in zip(got, want, clips):
         assert g.S.shape == w.S.shape == (N_FRAMES, 9)
@@ -141,6 +157,23 @@ def test_run_batch_matches_jax(clips, jax_batch, port_batch):
         assert (g.valid == w.valid).mean() >= 0.99
         np.testing.assert_array_equal(g.B[:, 12:14], w.B[:, 12:14])
         assert abs(g.speed_kmh - c.speed_kmh) <= 0.15 * c.speed_kmh
+
+
+def test_run_batch_matches_jax(clips, jax_batch, port_batch):
+    """run_batch on JAX's noise: each lane's speed within 0.5% of JAX's
+    lane, its translations within 1e-3 relative, equal validity on >= 99%
+    of the track history; each lane within 15% of its truth."""
+    _matches_jax(port_batch[0], jax_batch[0], clips)
+
+
+def test_run_batch_fast_matches_jax(clips, jax_batch_fast, port_batch_fast):
+    """run_batch with the fast LK engine against JAX's run_batch with it,
+    on JAX's noise, at test_run_batch_matches_jax's tolerances (JAX's lanes
+    39.8111 and 34.7108 km/h on this CPU). The port steps both lanes in
+    each segment as one call."""
+    _matches_jax(port_batch_fast[0], jax_batch_fast[0], clips)
+    cpu = torch.device("cpu")
+    assert port_batch_fast[1] == [(2, [(0, cpu), (1, cpu)])] * 2
 
 
 def test_msv_cloud_matches_jax_on_equal_inputs(clips, jax_batch):
@@ -197,27 +230,43 @@ def test_mesh_of_two_devices_equals_one(clips, monkeypatch):
 def test_run_batch_steps_all_lanes_of_a_device_at_once(port_batch):
     """The lanes backend runs each segment as one batched call per device:
     on the one CPU, segment A and segment B each step both lanes together
-    (lane v drawing from its generator seeded v), not one call per lane;
-    ``timings`` names the path."""
+    (lane v drawing from its generator seeded v), not one call per lane."""
     results, calls = port_batch
     cpu = torch.device("cpu")
+    assert len(results) == 2
     assert calls == [(2, [(0, cpu), (1, cpu)])] * 2
-    for r in results:
-        assert r.timings["lanes_path"] == "batched"
 
 
-def test_fast_backend_keeps_the_lane_loop(clips, monkeypatch):
-    """``lk_backend="fast"`` has no lane axis: run_batch runs its segments
-    lane by lane (segment A only here), lane v from its generator seeded v,
-    and ``timings`` says so."""
+def test_fast_backend_steps_all_lanes_at_once(clips, monkeypatch):
+    """``lk_backend="fast"`` takes the lane axis too (JAX vmaps its fast
+    engine): run_batch steps segment A (all of it here) of both lanes in one
+    call, lane v from its generator seeded v."""
     calls = _segment_recorder(monkeypatch)
     cpu = torch.device("cpu")
     got = run_batch([c.reader for c in clips], annotations=_annotations(clips), n_frames=MSV,
                     config=_cfg("fast"), device="cpu", verbose=False)
-    assert calls == [(0, [(0, cpu)]), (0, [(1, cpu)])]
-    for r, c in zip(got, clips, strict=True):
-        assert r.timings["lanes_path"] == "lane loop"
+    assert calls == [(2, [(0, cpu), (1, cpu)])]
+    for r in got:
         assert np.isfinite(r.B[:, 3:6]).all() and r.valid[1:].sum() > 0
+
+
+def test_feature_shards_batch_as_the_lanes(clips, monkeypatch):
+    """run_batch with shard_features=2 (each of 2 in-process shards a half
+    of every lane's points) steps segment A of both lanes in one call and
+    gives the lanes run_batch's bits: trajectory, track history, validity
+    and stats-table counts (JAX's sharded and unsharded batches agree)."""
+    calls = _segment_recorder(monkeypatch)
+    cpu = torch.device("cpu")
+    kw = dict(annotations=_annotations(clips), n_frames=MSV, device="cpu", verbose=False)
+    got = run_batch([c.reader for c in clips], config=_cfg(shard_features=2), **kw)
+    assert calls == [(2, [(0, cpu), (1, cpu)])]
+    want = run_batch([c.reader for c in clips], config=_cfg(), **kw)
+    for g, w in zip(got, want, strict=True):
+        assert w.valid[1:].sum() > 0
+        np.testing.assert_array_equal(g.B, w.B)
+        np.testing.assert_array_equal(g.track_px, w.track_px)
+        np.testing.assert_array_equal(g.valid, w.valid)
+        np.testing.assert_array_equal(g.S[:, 2:], w.S[:, 2:])
 
 
 def test_batched_lanes_need_one_frame_size(clips):

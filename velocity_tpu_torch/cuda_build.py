@@ -34,6 +34,7 @@ SIGNATURES = {
     "vt_extract_slabs": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
     "vt_extract_slabs_batched": (_I, [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P]),
     "vt_extract_patches": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
+    "vt_extract_patches_batched": (_I, [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P]),
     "vt_lk_block": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]),
 }

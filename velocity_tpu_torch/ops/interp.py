@@ -4,7 +4,8 @@ The gather primitives of the gather LK engine (``ops/lk.py``), the dense
 warp (``ops/warp.py``) and the fast LK engine (``ops/lk_fast.py``):
 
 - ``bilinear_sample``: cv2.remap INTER_LINEAR semantics, borders "clamp"
-  (replicate) and "zero";
+  (replicate) and "zero", of one image or, with a lane per sample, of a
+  stack;
 - ``gather_patches`` / ``affine_grid_patches``: bilinear windows around
   points, optionally through an affine map;
 - ``extract_patches``: integer-corner windows through K3
@@ -24,14 +25,20 @@ import torch.nn.functional as F
 from velocity_tpu_torch.ops import patch_pallas
 
 
-def bilinear_sample(img, x, y, border: str = "clamp"):
+def bilinear_sample(img, x, y, border: str = "clamp", lane=None):
     """Sample (H, W) ``img`` at float coordinates (x, y), bilinearly.
 
     ``x``, ``y`` broadcast together; pixel units with the origin at pixel
     centres (cv2.remap INTER_LINEAR). ``border="clamp"`` replicates edges,
-    ``"zero"`` returns 0 outside [0, W-1] x [0, H-1].
+    ``"zero"`` returns 0 outside [0, W-1] x [0, H-1]. ``img`` may be a stack
+    (V, H, W) of equal-sized images; ``lane`` (int64, broadcasting with x
+    and y) then names each sample's image, as JAX's vmap over videos samples
+    each lane's own frame.
     """
-    H, W = img.shape
+    H, W = img.shape[-2:]
+    if (img.dim() == 3) != (lane is not None):
+        raise ValueError(f"bilinear_sample: a lane index goes with an image stack, got "
+                         f"img {tuple(img.shape)} and lane {lane is not None}")
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     ax = x - x0
@@ -42,10 +49,11 @@ def bilinear_sample(img, x, y, border: str = "clamp"):
     y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
     y1i = torch.clamp(y0i + 1, 0, H - 1)
 
-    v00 = img[y0i, x0i]
-    v01 = img[y0i, x1i]
-    v10 = img[y1i, x0i]
-    v11 = img[y1i, x1i]
+    at = () if lane is None else (lane,)
+    v00 = img[at + (y0i, x0i)]
+    v01 = img[at + (y0i, x1i)]
+    v10 = img[at + (y1i, x0i)]
+    v11 = img[at + (y1i, x1i)]
 
     out = (
         v00 * (1 - ax) * (1 - ay)
@@ -86,15 +94,18 @@ def affine_grid_patches(img, centers, size: int, M, border: str = "clamp"):
 def extract_patches(img, corners, size: int):
     """(N, size, size) pixel patches at integer ``corners`` (N, 2) xy, clamped.
 
-    Images smaller than the patch are edge-padded (bottom and right) first.
+    ``img`` is one image (H, W) or, lane-major, a stack (V, H, W): point i
+    then reads image i // (N // V). Images smaller than the patch are
+    edge-padded (bottom and right) first, each image of a stack as alone.
     The extraction is K3 (``patch_pallas.extract_patches``), which clamps
     the corners into the image. Returns (patches in ``img``'s dtype, clamped
     corners (N, 2) int32 xy).
     """
-    H, W = img.shape
+    H, W = img.shape[-2:]
     if H < size or W < size:
-        img = F.pad(img[None, None], (0, max(0, size - W), 0, max(0, size - H)),
-                    mode="replicate")[0, 0]
+        pad = F.pad(img.reshape(-1, 1, H, W), (0, max(0, size - W), 0, max(0, size - H)),
+                    mode="replicate")
+        img = pad.reshape(img.shape[:-2] + pad.shape[-2:])
     patches, cl = patch_pallas.extract_patches(
         img.to(torch.float32).contiguous(), corners.to(torch.int32).contiguous(), size)
     return patches.to(img.dtype), cl

@@ -12,7 +12,15 @@ gradients chain-ruled through the map's linear part. Each level runs exactly
 ``lk_backend="reference"`` tracker backend and the oracle of the fast engine.
 
 Also shared with the lanes and fast engines: ``LKResult``, the per-level
-affine map, edge padding and the Scharr gradients of a batch of patches.
+affine map and its per-point form, edge padding and the Scharr gradients of
+a batch of patches.
+
+Lanes (JAX's ``run_batch`` vmaps every engine over videos): the images may
+be stacks (V, H, W) of equal-sized frames, the points then lie on one
+lane-major axis of V*N (lane v's are rows v*N..v*N+N-1), and a warp may be
+one (2, 3) map per lane, (V, 2, 3). Each sample reads its lane's image and
+each point its lane's map; every per-point operation is the one of a single
+call, so each lane gets the bits of its own call.
 
 Units: gradients are in intensity per pixel; OpenCV's fixed-point
 minEigThreshold (default 1e-4) is ``1024 * min_eig_threshold`` here.
@@ -44,6 +52,20 @@ def _affine_for_level(M, level, dtype):
     return torch.cat([M[..., :2], M[..., 2:3] * s], dim=-1)
 
 
+def _per_point(M, n_points: int):
+    """A (2, 3) map as it is; a stack of one map per lane (V, 2, 3) as one
+    per point (n_points, 2, 3), lane-major."""
+    if M is None or M.dim() == 2:
+        return M
+    return M.repeat_interleave(n_points // M.shape[0], dim=0)
+
+
+def _entry(M, i: int, j: int):
+    """Entry (i, j) of a map against (N, rows, cols) grids: 0-d for one
+    (2, 3) map, (N, 1, 1) for one map per point (N, 2, 3)."""
+    return M[..., i, j] if M.dim() == 2 else M[:, i, j, None, None]
+
+
 def _pad_edge(img, pad: int):
     """Edge-pad (H, W) ``img``, or each image of a stack (..., H, W), by
     ``pad`` on every side."""
@@ -69,26 +91,31 @@ def _grad_xy(patch):
 
 
 def scharr_derivatives(img):
-    """Scharr-smoothed gradients (gx, gy) of an (H, W) image, true units."""
-    gx, gy = _grad_xy(img[None])
-    return gx[0], gy[0]
+    """Scharr-smoothed gradients (gx, gy) of an (H, W) image, or of each
+    image of a stack (V, H, W), true units."""
+    H, W = img.shape[-2:]
+    gx, gy = _grad_xy(img.reshape(-1, H, W))
+    return gx.reshape(img.shape), gy.reshape(img.shape)
 
 
 def _apply_affine(M, x, y):
+    """(x, y) through map M: one (2, 3) map, or one per point (N, 2, 3)
+    against (N, rows, cols) grids."""
     if M is None:
         return x, y
     return (
-        M[0, 0] * x + M[0, 1] * y + M[0, 2],
-        M[1, 0] * x + M[1, 1] * y + M[1, 2],
+        _entry(M, 0, 0) * x + _entry(M, 0, 1) * y + _entry(M, 0, 2),
+        _entry(M, 1, 0) * x + _entry(M, 1, 1) * y + _entry(M, 1, 2),
     )
 
 
-def _sample_grid(img, cx, cy, off, M):
-    """Sample the (N, W, W) window around centres (cx, cy) through map M."""
+def _sample_grid(img, cx, cy, off, M, lane=None):
+    """Sample the (N, W, W) window around centres (cx, cy) through map M
+    (from image ``lane`` of a stack)."""
     gx = cx[:, None, None] + off[None, None, :]
     gy = cy[:, None, None] + off[None, :, None]
     sx, sy = _apply_affine(M, gx, gy)
-    return bilinear_sample(img, sx, sy)
+    return bilinear_sample(img, sx, sy, lane=lane)
 
 
 def _min_eig_gate(gxp, gyp, win: int, min_eig_threshold: float):
@@ -154,6 +181,9 @@ def lk_pyramidal(
     ``guess``: optional (N, 2) initial estimates (default ``pts_src``).
     ``warp_src`` / ``warp_dst``: optional (2, 3) affine sample maps at level-0
     scale; with ``warp_dst`` the solved coordinates live in the source frame.
+
+    Lanes: images (V, H, W), ``pts_src`` and ``guess`` (V*N, 2) lane-major,
+    each warp one (2, 3) map or one per lane (V, 2, 3).
     """
     dtype = pts_src.dtype if pts_src.is_floating_point() else torch.float32
     pts_src = pts_src.to(dtype)
@@ -169,24 +199,28 @@ def lk_pyramidal(
     next_pts = (guess if guess is not None else pts_src).to(dtype)
     next_pts = next_pts * (1.0 / (1 << max_level))
     status = torch.ones(N, dtype=torch.bool, device=dev)
+    # each point's image in a stack, against (N, win, win) grids
+    lane = (None if src_pyr[0].dim() == 2 else
+            (torch.arange(N, device=dev) // (N // src_pyr[0].shape[0]))[:, None, None])
 
     for level in range(max_level, -1, -1):
         simg, dimg = src_pyr[level], dst_pyr[level]
-        Hs, Ws = simg.shape
-        Hd, Wd = dimg.shape
-        Ms = _affine_for_level(warp_src, level, dtype)
-        Md = _affine_for_level(warp_dst, level, dtype)
+        Hs, Ws = simg.shape[-2:]
+        Hd, Wd = dimg.shape[-2:]
+        Ms = _per_point(_affine_for_level(warp_src, level, dtype), N)
+        Md = _per_point(_affine_for_level(warp_dst, level, dtype), N)
         p_l = pts_src * (1.0 / (1 << level))
         cx, cy = p_l[:, 0], p_l[:, 1]
         src_ok = _in_bounds(p_l, half, win, Ws, Hs)
 
         # fixed source window + gradient windows (chain rule through warp_src)
-        patch_s = _sample_grid(simg, cx, cy, off, Ms)
+        patch_s = _sample_grid(simg, cx, cy, off, Ms, lane)
         sgx, sgy = scharr_derivatives(simg)
-        gxp = _sample_grid(sgx, cx, cy, off, Ms)
-        gyp = _sample_grid(sgy, cx, cy, off, Ms)
+        gxp = _sample_grid(sgx, cx, cy, off, Ms, lane)
+        gyp = _sample_grid(sgy, cx, cy, off, Ms, lane)
         if Ms is not None:
-            gxp, gyp = Ms[0, 0] * gxp + Ms[1, 0] * gyp, Ms[0, 1] * gxp + Ms[1, 1] * gyp
+            gxp, gyp = (_entry(Ms, 0, 0) * gxp + _entry(Ms, 1, 0) * gyp,
+                        _entry(Ms, 0, 1) * gxp + _entry(Ms, 1, 1) * gyp)
 
         a11, a12, a22, inv_det, eig_ok = _min_eig_gate(gxp, gyp, win, min_eig_threshold)
         trackable = src_ok & eig_ok
@@ -197,7 +231,7 @@ def lk_pyramidal(
         prev_delta = torch.zeros((N, 2), dtype=dtype, device=dev)
         for j in range(iters):
             in_ok = _in_bounds(next_pts, half, win, Wd, Hd)
-            patch_d = _sample_grid(dimg, next_pts[:, 0], next_pts[:, 1], off, Md)
+            patch_d = _sample_grid(dimg, next_pts[:, 0], next_pts[:, 1], off, Md, lane)
             next_pts, done, prev_delta = _lk_update(
                 j, next_pts, done, prev_delta, patch_d, patch_s, gxp, gyp,
                 a11, a12, a22, inv_det, trackable, in_ok, eps2)

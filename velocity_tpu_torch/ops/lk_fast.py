@@ -18,6 +18,13 @@ min-eigenvalue and bounds status) with one documented deviation: each
 point's search per level is bounded by ``search_radius`` px around its
 initial estimate (samples clamp at the patch edge beyond that). Every level
 runs exactly ``iters`` iterations, with no host sync.
+
+Lanes (JAX's ``run_batch`` vmaps the engine over videos): the images may be
+stacks (V, H, W) of equal-sized frames, the points one lane-major axis of
+V*N, and a warp one (2, 3) map per lane, (V, 2, 3). K3 then extracts every
+lane's patches in one launch from the stack (point i from image
+i // (N // V)), the resampling stays one batched product over all V*N
+points, and each lane gets the bits of its own call.
 """
 
 from __future__ import annotations
@@ -29,11 +36,13 @@ from velocity_tpu_torch.ops.interp import sample_patches as _sample
 from velocity_tpu_torch.ops.lk import (
     LKResult,
     _affine_for_level,
+    _entry,
     _grad_xy,
     _in_bounds,
     _lk_update,
     _min_eig_gate,
     _pad_edge,
+    _per_point,
 )
 from velocity_tpu_torch.ops.pyramid import build_pyramid
 
@@ -51,8 +60,9 @@ def _extract_warped(img, centers, size: int, M):
 
     Because M is near-identity, the bilinear gather is a stencil: one
     axis-aligned slab per point (K3), then a taps x taps weighted sum of
-    shifted slab slices (dy outer, dx inner, as in JAX). Returns (patches,
-    fractional window corner (N, 2))."""
+    shifted slab slices (dy outer, dx inner, as in JAX). ``img`` may be a
+    stack (V, H, W) with lane-major centres, M one (2, 3) map or one per
+    point (N, 2, 3). Returns (patches, fractional window corner (N, 2))."""
     dtype = centers.dtype
     dev = centers.device
     half = (size - 1) // 2
@@ -60,13 +70,18 @@ def _extract_warped(img, centers, size: int, M):
     margin = taps // 2 - 1
     Q = size + taps  # slab side: shifts 0..taps-1 of a size-wide slice
 
+    def m(i, j):  # entry (i, j) of the map: 0-d, or (N,) per point
+        return M[..., i, j]
+
     corner = centers - half
     # source position of the patch centre (the stencil's anchor)
-    base_x = M[0, 0] * centers[:, 0] + M[0, 1] * centers[:, 1] + M[0, 2]
-    base_y = M[1, 0] * centers[:, 0] + M[1, 1] * centers[:, 1] + M[1, 2]
+    base_x = m(0, 0) * centers[:, 0] + m(0, 1) * centers[:, 1] + m(0, 2)
+    base_y = m(1, 0) * centers[:, 0] + m(1, 1) * centers[:, 1] + m(1, 2)
     offc = torch.arange(size, dtype=dtype, device=dev) - half
-    Gx = M[0, 0] * offc[None, :] + M[0, 1] * offc[:, None]  # (i=row, j=col)
-    Gy = M[1, 0] * offc[None, :] + M[1, 1] * offc[:, None]
+    # (i=row, j=col) offsets through the linear part: (size, size), or
+    # (N, size, size) with one map per point
+    Gx = _entry(M, 0, 0) * offc[None, :] + _entry(M, 0, 1) * offc[:, None]
+    Gy = _entry(M, 1, 0) * offc[None, :] + _entry(M, 1, 1) * offc[:, None]
 
     # edge-pad so that slab corners never clamp: a clamped corner would shift
     # the slab off the stencil's anchor
@@ -80,9 +95,9 @@ def _extract_warped(img, centers, size: int, M):
     # (i, j), clipped to the stencil's reach
     ii = torch.arange(size, dtype=dtype, device=dev)[:, None]
     jj = torch.arange(size, dtype=dtype, device=dev)[None, :]
-    ey = torch.clamp((base_y + pad - K[:, 1].to(dtype))[:, None, None] + Gy[None] - ii[None],
+    ey = torch.clamp((base_y + pad - K[:, 1].to(dtype))[:, None, None] + Gy - ii,
                      0.0, taps - 2.0)
-    ex = torch.clamp((base_x + pad - K[:, 0].to(dtype))[:, None, None] + Gx[None] - jj[None],
+    ex = torch.clamp((base_x + pad - K[:, 0].to(dtype))[:, None, None] + Gx - jj,
                      0.0, taps - 2.0)
 
     wxs = [torch.clamp(1.0 - torch.abs(ex - dx), min=0.0) for dx in range(taps)]
@@ -142,7 +157,10 @@ def lk_pyramidal_fast(
     search_radius: int = 8,
     warp_dst=None,
 ) -> LKResult:
-    """Fast equivalent of ``ops.lk.lk_pyramidal`` (see the deviation note)."""
+    """Fast equivalent of ``ops.lk.lk_pyramidal`` (see the deviation note).
+
+    Lanes: images (V, H, W), ``pts_src`` and ``guess`` (V*N, 2) lane-major,
+    ``warp_dst`` one (2, 3) map or one per lane (V, 2, 3)."""
     dtype = pts_src.dtype if pts_src.is_floating_point() else torch.float32
     pts_src = pts_src.to(dtype)
     src_pyr = build_pyramid(src_img.to(dtype), max_level)
@@ -160,9 +178,9 @@ def lk_pyramidal_fast(
 
     for level in range(max_level, -1, -1):
         simg, dimg = src_pyr[level], dst_pyr[level]
-        Hs, Ws = simg.shape
-        Hd, Wd = dimg.shape
-        Md = _affine_for_level(warp_dst, level, dtype)
+        Hs, Ws = simg.shape[-2:]
+        Hd, Wd = dimg.shape[-2:]
+        Md = _per_point(_affine_for_level(warp_dst, level, dtype), N)
         p_l = pts_src * (1.0 / (1 << level))
         src_ok = _in_bounds(p_l, half, win, Ws, Hs)
 
@@ -230,7 +248,7 @@ def _lk_backward_warped(
     wimg,  # destination image (sampled through the warp = backward source)
     dst_img,  # original source image (backward destination)
     pts,  # forward results (source-frame coordinates)
-    M,  # (2, 3) affine, source -> wimg coordinates
+    M,  # (2, 3) affine, source -> wimg coordinates (or one per lane, (V, 2, 3))
     *,
     win: int = 15,
     max_level: int = 4,
@@ -256,8 +274,8 @@ def _lk_backward_warped(
 
     for level in range(max_level, -1, -1):
         simg, dimg = src_pyr[level], dst_pyr[level]
-        Hd, Wd = dimg.shape
-        Ml = _affine_for_level(M, level, dtype)
+        Hd, Wd = dimg.shape[-2:]
+        Ml = _per_point(_affine_for_level(M, level, dtype), N)
         p_l = pts * (1.0 / (1 << level))
 
         # warped source patch: its numeric gradients are already with respect

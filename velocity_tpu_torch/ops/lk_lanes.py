@@ -31,7 +31,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from velocity_tpu_torch.ops.lk import LKResult, _affine_for_level, _grad_xy, _pad_edge
+from velocity_tpu_torch.ops.lk import (LKResult, _affine_for_level, _grad_xy, _pad_edge,
+                                       _per_point)
 from velocity_tpu_torch.ops.lk_block_pallas import (  # noqa: F401
     BLOCK_ITERS,
     REACH,
@@ -67,14 +68,6 @@ def _extract_slabs(img, corners, size: int):
                     mode="replicate")
         img = pad.reshape(img.shape[:-2] + pad.shape[-2:])
     return extract_slabs(img.contiguous(), corners, size)
-
-
-def _per_point(M, n_points: int):
-    """A (2, 3) map as it is; a stack of one map per lane (V, 2, 3) as one
-    per point (n_points, 2, 3), lane-major."""
-    if M is None or M.dim() == 2:
-        return M
-    return M.repeat_interleave(n_points // M.shape[0], dim=0)
 
 
 def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):

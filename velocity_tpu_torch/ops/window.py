@@ -5,8 +5,9 @@ an f32 image at each, points-major. Here are its plain version, the input
 checks and the launch; each kernel's module keeps its own entry point,
 plain version and launch counters.
 
-A stack of V equal-sized images (V, H, W) is gathered in one call (K2
-only): the N points are lane-major, point i reads image ``i // (N // V)``.
+A stack of V equal-sized images (V, H, W) is gathered in one call (the
+lanes of ``run_batch``, K2 on the lanes engine and K3 on the fast one): the
+N points are lane-major, point i reads image ``i // (N // V)``.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Torch twin of ``velocity_tpu/pipeline/multivideo.py:run_batch``. JAX vmaps
 ``mesh[v % len(mesh)]`` (or on the one ``device``), and the lanes placed on
 one mesh device run each segment as one ``scan_segment`` over a lane axis
 (``pipeline/scan.py``): one batched frame step per device per frame, whose
-LK launches K2 and K1 once for all its lanes' points. Per video, on the
+XX
 host: decode and frame-0 init, then segment A (frames 1..msv), then the MSV
 scale transfer in f64 (it calls ``msv_refine_translation`` directly and
 moves the cloud by the lane's translation at the MSV frame; the rows before
@@ -14,10 +14,10 @@ it keep their translations), then segment B from ``vp = vg`` at the MSV
 frame. A lane whose tracking collapsed at some frame is run again through
 the per-frame driver, which carries the feature-match rescue.
 
-The step takes a lane axis only on the lanes LK engine without feature
-shards; ``lk_backend="fast"``, the gather engine and ``shard_features > 1``
-run each segment lane by lane (``scan_segment`` per lane) on the same
-kernels and devices. ``timings["lanes_path"]`` names the path that ran.
+Every configuration takes the lane axis, as every one is vmapped in JAX:
+the lanes, fast and gather LK engines track all lanes' points on image
+stacks, and with ``shard_features > 1`` each feature shard takes its slice
+of every lane's points.
 """
 
 from __future__ import annotations
@@ -36,16 +36,6 @@ from velocity_tpu_torch.pipeline.speedest import (
     resolve_annotation)
 from velocity_tpu_torch.pipeline.tracker import frame_pyramids
 from velocity_tpu_torch.solvers.triangulate import msv_refine_translation
-
-BATCHED, LANE_LOOP = "batched", "lane loop"
-
-
-def lanes_path(cfg: PipelineConfig) -> str:
-    """The segment path ``run_batch`` takes for ``cfg``: the batched step
-    (lanes LK engine, no feature shards) or the loop over lanes."""
-    tr = cfg.tracker
-    return BATCHED if tr.lk_backend == "lanes" and tr.shard_features <= 1 else LANE_LOOP
-
 
 def _stack(states):
     """Per-lane states (tuples of tensors or of pyramids) stacked lane-major."""
@@ -112,17 +102,14 @@ def run_batch(
     msv_i = cfg.msv_frame
     seg_a = min(msv_i, n - 1)
 
-    # ---- the segments: one batched call per mesh device, or one per lane ----
-    path = lanes_path(cfg)
+    # ---- the segments: one batched call per mesh device ----
     slots = len(devices)
-    groups = ([[v for v in range(V) if v % slots == s] for s in range(min(slots, V))]
-              if path == BATCHED else [[v] for v in range(V)])
-    if path == BATCHED:
-        for group in groups:
-            shapes = {tuple(frames_all[v].shape[1:]) for v in group}
-            if len(shapes) > 1:
-                raise ValueError(f"run_batch: the lanes of one device need frames of one "
-                                 f"size, got {sorted(shapes)}")
+    groups = [[v for v in range(V) if v % slots == s] for s in range(min(slots, V))]
+    for group in groups:
+        shapes = {tuple(frames_all[v].shape[1:]) for v in group}
+        if len(shapes) > 1:
+            raise ValueError(f"run_batch: the lanes of one device need frames of one "
+                             f"size, got {sorted(shapes)}")
     lanes = []
     for v in range(V):
         dev, init = lane_dev[v], inits[v]
@@ -141,11 +128,6 @@ def run_batch(
     def segment(group, first, stop, starts, p3s):
         """Frames first..stop-1 of the group's lanes from their start states
         (pyr, spyr, pts, vg, vp, t) and structures: {v: (carry, outs)}."""
-        if path == LANE_LOOP:
-            (v,) = group
-            return {v: scan_segment(frames_all[v][first:stop], *starts[0], p3s[0],
-                                    lanes[v]["intr"], lanes[v]["gen"], cfg.tracker, cfg.solver,
-                                    sdt)}
         carry, outs = scan_segment(
             torch.stack([frames_all[v][first:stop] for v in group]), *_stack(starts),
             torch.stack(p3s), Intrinsics.stack([lanes[v]["intr"] for v in group]),
@@ -247,6 +229,6 @@ def run_batch(
             valid=valid_all[v], plate_box=inits[v]["boxa"], roi_box=inits[v]["boxb"],
             camera=cams[v], config=cfg, first_gray=frames_all[v][0].cpu().numpy(),
             last_gray=frames_all[v][n - 1].cpu().numpy(),
-            timings={"wall_s": wall, "msv_s": msv_s[v], "lanes_path": path},
+            timings={"wall_s": wall, "msv_s": msv_s[v]},
         ))
     return results

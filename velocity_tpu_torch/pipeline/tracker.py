@@ -18,14 +18,16 @@ rebuild their pyramids inside each call, as in JAX. With "lanes" and
 ``shard_features > 1`` the forward-backward stages split their lanes over
 that many shards (``_sharded_fb``).
 
-Lanes (JAX's ``run_batch`` vmaps the step over videos): with the lanes
-backend and no feature shards, ``fused_frame_step_pyr`` and the stage
-functions below it take a leading lane axis on every input (frames and
-pyramid levels (V, H, W) of equal size, points (V, N, ...), stacked
-``Intrinsics``, one RANSAC generator per lane in a list) and return one. The
-LK engine then tracks all lanes' points in one pass (one K2 and one K1
-launch per block), RANSAC and the pose LM run batched with each lane's
-reductions its own, and each lane gets the bits of its own step.
+Lanes (JAX's ``run_batch`` vmaps the step over videos): with every backend
+and any ``shard_features``, ``fused_frame_step_pyr`` and the stage functions
+below it take a leading lane axis on every input (frames and pyramid levels
+(V, H, W) of equal size, points (V, N, ...), stacked ``Intrinsics``, one
+RANSAC generator per lane in a list) and return one. The LK engine then
+tracks all lanes' points in one pass on image stacks (the lanes engine: one
+K2 and one K1 launch per block; the fast one: one K3 launch per patch set;
+with feature shards, each shard a slice of every lane's points), RANSAC and
+the pose LM run batched with each lane's reductions its own, and each lane
+gets the bits of its own step.
 """
 
 from __future__ import annotations
@@ -260,7 +262,7 @@ def fused_frame_step_pyr(
     (pts', vg', vp', t, residual_rms, p_proj, n_stage2, T23).
     ``t0`` warm-starts the pose solve from the previous translation.
 
-    With lanes (lanes backend, ``shard_features`` 1): ``im_cur`` (V, H, W),
+    With lanes (any backend and ``shard_features``): ``im_cur`` (V, H, W),
     the pyramids' levels (V, h, w), pts (V, N, 2), vg and vp (V, N), p3
     (V, N, 3), ``intr`` from ``Intrinsics.stack``, ``generator`` a list of V
     generators, t0 (V, 3); every output gains the lane axis."""
