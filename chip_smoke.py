@@ -17,8 +17,18 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 - ``ScanSpeedRunner.run`` with the default lanes LK engine (kernels K1 and
   K2) and with ``lk_backend="fast"`` (kernel K3, with K2 at init), each
   followed by a profiled warm run of the clip's first ``PROFILE_FRAMES``
-  frames (device busy share, top kernels and the hand kernels', the share
-  of each eager stencil in ``ANNOTATED``);
+  frames (device busy share, top kernels and the hand kernels');
+- phase ``graph``: on a card ``scan_segment`` replays one captured CUDA
+  graph of the frame step per frame (``pipeline/scan.py``); one eager step
+  under ``torch.cuda.set_sync_debug_mode("error")``, then the captured
+  segments of the scan runner (lanes and fast), of ``run_batch``'s
+  three-lane batch (lanes and fast) and of the long-video runner against
+  the eager step called directly on the card, bit for bit, with the
+  launches the replays counted equal to those the eager steps made; a
+  replayed segment under the sync debug mode; each graph's node count,
+  capture time, pool memory and per-replay launches, and one replayed
+  step's stream time, device activities and busy share beside one eager
+  step's;
 - phase ``driver``: ``SpeedEstimator.run``, the per-frame driver, beside the
   scan runner in turns, then with the feature-match rescue forced on every
   frame (``min_affine_inliers`` huge) through a matcher built from the
@@ -75,7 +85,9 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
   temporary directory, every row's value finite.
 
 It checks that each path went through its kernels (the counts are set to 0
-just before a path's run and read just after) and recovered the clip's
+just before a path's run and read just after; a captured step's wrappers
+count at its capture, and each replay adds the capture's counts) and
+recovered the clip's
 speed, and prints each kernel's launches by shape with launches x (time -
 bound). The ``kernels`` line gives K1's and K2's launches on the bench's
 scan-mode run (warm-up and timed runs) and each kernel's launches on every
@@ -91,6 +103,7 @@ reads the per-point tensors of the points still active on entry.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -557,26 +570,26 @@ def _still_levels(dev):
     return sorted({(lv.shape[1], lv.shape[0]) for lv in full + small}, reverse=True)
 
 
-def _counters():
-    from velocity_tpu_torch.ops import lk_block_pallas as k1
-    from velocity_tpu_torch.ops import patch_pallas as k3
-    from velocity_tpu_torch.ops import slab_pallas as k2
-
-    return {"lk_block": k1.lk_block, "extract_slabs": k2.extract_slabs,
-            "extract_patches": k3.extract_patches}
-
-
 def _reset_counts():
-    for fn in _counters().values():
-        fn.launches = 0
-        fn.launches_by_shape.clear()
+    from velocity_tpu_torch.ops import launches
+
+    launches.set_counts()
 
 
 def _read_counts():
     """({kernel: launches}, {kernel: {shape: launches}}) since the last reset."""
-    counters = _counters()
-    return ({name: fn.launches for name, fn in counters.items()},
-            {name: dict(fn.launches_by_shape) for name, fn in counters.items()})
+    from velocity_tpu_torch.ops import launches
+
+    counts = launches.read()
+    return ({name: n for name, (n, _) in counts.items()},
+            {name: by_shape for name, (_, by_shape) in counts.items()})
+
+
+def _launches_since(before):
+    """[K1, K2, K3 launches] since ``launches.read()`` gave ``before``."""
+    from velocity_tpu_torch.ops import launches
+
+    return [n for n, _ in launches.since(before).values()]
 
 
 def _check_run(label, res, clip, launches, path_kernels, jax_kmh,
@@ -606,15 +619,12 @@ def _annotated(name, fn):
     return wrapper
 
 
-def _profile(run, lk_backend):
-    """One profiled warm run (of ``PROFILE_FRAMES`` frames): device busy
-    share (union of device activity over the run's wall time), top kernels
-    by device time (and the three hand kernels' wherever they rank), and the
-    device time spent under each function of ``ANNOTATED[lk_backend]``."""
+@contextlib.contextmanager
+def _annotating(lk_backend):
+    """Each function of ``ANNOTATED[lk_backend]`` wrapped in a profiler range
+    while the context lasts; yields their names. Only an eager step calls
+    them: a replayed graph runs no Python."""
     import importlib
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     patched = []
     for path in ANNOTATED[lk_backend]:
@@ -622,22 +632,44 @@ def _profile(run, lk_backend):
         mod = importlib.import_module(f"velocity_tpu_torch.ops.{mod_name}")
         patched.append((mod, attr, getattr(mod, attr)))
         setattr(mod, attr, _annotated(attr, getattr(mod, attr)))
-    names = {attr for _, attr, _ in patched}
     try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        yield {attr for _, attr, _ in patched}
     finally:
         for mod, attr, real in patched:
             setattr(mod, attr, real)
+
+
+def _shares(events, names, total_us) -> str:
+    """"; name x ms = y% of kernel time" for each annotated function."""
+    from torch.autograd import DeviceType
+
+    out = ""
+    for name in sorted(names):
+        us = sum(e.device_time_total for e in events
+                 if e.name == name and e.device_type == DeviceType.CPU)
+        out += f"; {name} {us / 1e3:.1f} ms = {us / max(total_us, 1e-9):.1%} of kernel time"
+    return out
+
+
+def _profile(run, lk_backend):
+    """One profiled warm run (of ``PROFILE_FRAMES`` frames): device busy
+    share (union of device activity over the run's wall time) and top
+    kernels by device time (and the three hand kernels' wherever they
+    rank). The shares of ``ANNOTATED``'s functions are read on an eager
+    step (phase ``graph``): the run replays captured steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     t0 = time.perf_counter()
     events = prof.events()
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
                    if e.device_type == DeviceType.CUDA
-                   and not getattr(e, "is_user_annotation", False)
-                   and e.name not in names)
+                   and not getattr(e, "is_user_annotation", False))
     busy, end = 0.0, -1.0
     for s, e in spans:
         if e > end:
@@ -645,19 +677,13 @@ def _profile(run, lk_backend):
             end = e
     by_kernel = {}
     for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in names \
-                and not getattr(e, "is_user_annotation", False):
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             n, t = by_kernel.get(e.name, (0, 0.0))
             by_kernel[e.name] = (n + 1, t + e.time_range.elapsed_us())
     total_us = sum(t for _, t in by_kernel.values())
-    shares = ""
-    for name in sorted(names):
-        us = sum(e.device_time_total for e in events
-                 if e.name == name and e.device_type == DeviceType.CPU)
-        shares += f"; {name} {us / 1e3:.1f} ms = {us / max(total_us, 1e-9):.1%} of kernel time"
     print(f"profile {lk_backend}, {PROFILE_FRAMES} frames: wall {wall:.3f} s (profiled), "
           f"device busy {busy / 1e6:.3f} s = {busy / 1e6 / wall:.1%}, kernel time "
-          f"{total_us / 1e3:.1f} ms in {len(spans)} device activities{shares} (trace read "
+          f"{total_us / 1e3:.1f} ms in {len(spans)} device activities (trace read "
           f"in {time.perf_counter() - t0:.1f} s)")
     ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1][1])
     for rank, (name, (n, t)) in enumerate(ranked):
@@ -718,6 +744,277 @@ def phase_slice(dev, clip, lk_backend, path_kernels, rows):
     _check_run(lk_backend, res, clip, launches, path_kernels, jax_kmh)
     _profile(lambda: run(PROFILE_FRAMES), lk_backend)
     return launches
+
+
+def _recording_segments_of(module, store, first: int):
+    """Patch ``module.scan_segment`` so that each of its first ``first``
+    calls appends (args, kwargs, the states of its generators at the call,
+    its result, the launches it counted) to ``store``; returns the undo."""
+    from velocity_tpu_torch.ops import launches
+
+    real = module.scan_segment
+
+    def recording(*args, **kwargs):
+        if len(store) >= first:
+            return real(*args, **kwargs)
+        gens = args[9] if isinstance(args[9], list) else [args[9]]
+        states = [g.get_state() for g in gens]
+        before = launches.read()
+        out = real(*args, **kwargs)
+        store.append((args, kwargs, states, out, _launches_since(before)))
+        return out
+
+    module.scan_segment = recording
+
+    def undo():
+        module.scan_segment = real
+
+    return undo
+
+
+def _eager_segment(dev, args, kwargs, states):
+    """A recorded ``scan_segment`` call again, frame by frame through the
+    eager step called directly on the card (``scan._frame``, the body the
+    graph captured, in the captured form of its loops, so that it makes the
+    graph's launches), from generators set to the recorded states: (carry,
+    outs stacked as the segment stacks them, launches counted)."""
+    from velocity_tpu_torch.ops import launches
+    from velocity_tpu_torch.pipeline import scan
+    from velocity_tpu_torch.utils.loops import fixed_trip_loops
+
+    frames, pyr, spyr, pts, vg, vp, t0, p3, intr, gen, tcfg, scfg, sdt = args[:13]
+    lean = kwargs.get("lean", args[13] if len(args) > 13 else False)
+    gens = []
+    for st in states:
+        g = torch.Generator(device=dev)
+        g.set_state(st)
+        gens.append(g)
+    lanes = pts.dim() == 3
+    k = frames.shape[1] if lanes else len(frames)
+    per_frame = [gens] * k if lanes else (gens if isinstance(gen, list) else gens * k)
+    carry, recs = (pyr, spyr, pts, vg, vp, t0), []
+    before = launches.read()
+    with fixed_trip_loops():
+        for j in range(k):
+            carry, rec = scan._frame(frames[:, j] if lanes else frames[j], carry, p3, intr,
+                                     per_frame[j], tcfg, scfg, sdt, lean)
+            recs.append(rec)
+    torch.cuda.synchronize()
+    counted = _launches_since(before)
+    outs = tuple(torch.stack(o, dim=1 if lanes else 0) for o in zip(*recs))
+    return carry, (outs[0] if lean else outs), counted
+
+
+def _graph_matches_eager(dev, label, store):
+    """Each recorded segment (captured graph, one replay a frame) against
+    the eager step on the same inputs: every output and the carry bit for
+    bit, and the launches the replays counted equal to those the eager
+    steps made. Returns the frames compared."""
+    from velocity_tpu_torch.pipeline import scan
+
+    frames = 0
+    for n, (args, kwargs, states, (carry, outs), counted) in enumerate(store):
+        e_carry, e_outs, e_counted = _eager_segment(dev, args, kwargs, states)
+        got = scan._flat((carry, outs))
+        want = scan._flat((e_carry, e_outs))
+        same = len(got) == len(want) and all(
+            a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+            for a, b in zip(got, want))
+        k = args[0].shape[1] if args[3].dim() == 3 else len(args[0])
+        frames += k
+        print(f"graph {label} segment {n} ({k} frames, pts {tuple(args[3].shape)}): captured "
+              f"segment bit-equal to the eager step: {same}; launches K1/K2/K3 counted by "
+              f"the replays {counted}, made by the eager steps {e_counted}")
+        if not same or counted != e_counted:
+            raise AssertionError(f"graph {label} segment {n}: the captured segment differs "
+                                 f"from the eager step ({same}) or its counted launches "
+                                 f"{counted} from the eager steps' {e_counted}")
+    return frames
+
+
+def _replay_profile(dev, graph, inputs, names=()):
+    """One step ``graph(*inputs)`` (a replay: inputs copied in, noise drawn,
+    the replay; or an eager step): stream ms between CUDA events (median of
+    5), and the device activities of one step under ``torch.profiler``:
+    their count, their summed ms, that sum's share of the stream time, and
+    the shares of the annotated functions ``names``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def step():
+        graph(*inputs)
+
+    ms = []
+    for _ in range(6):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    event_ms = statistics.median(ms[1:])
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = prof.events()
+    acts = [e for e in events if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False) and e.name not in names]
+    kernel_ms = sum(e.time_range.elapsed_us() for e in acts) / 1e3
+    return dict(event_ms=event_ms, kernel_ms=kernel_ms, activities=len(acts),
+                busy=kernel_ms / event_ms, shares=_shares(events, names, kernel_ms * 1e3))
+
+
+def _node_count(raw_graph) -> int | None:
+    """Nodes of a ``cudaGraph_t`` (``cuGraphGetNodes``), or None where the
+    driver library does not load or the call fails."""
+    import ctypes
+
+    try:
+        cuda = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    n = ctypes.c_size_t(0)
+    rc = cuda.cuGraphGetNodes(ctypes.c_void_p(raw_graph), None, ctypes.byref(n))
+    return int(n.value) if rc == 0 else None
+
+
+def phase_graph(dev, clip):
+    """The scan form on the card: each segment of ``scan_segment`` replays
+    one captured CUDA graph per frame. First one eager step (frame 0 -> 1)
+    in the captured form of its loops (``utils/loops.py``) under
+    ``torch.cuda.set_sync_debug_mode("error")``: no host read, no
+    synchronising copy. Then the captured segments of the scan runner with
+    the lanes and the fast engine (both segments of a 20-frame run), of
+    run_batch's three-lane batch with each (segment A), and of the
+    long-video runner (its first two segments, window 8) against the eager
+    step called directly on the card on the same inputs, bit for bit, with
+    the launches each counted; a replayed segment under the sync debug
+    mode; then each graph's node count, capture time, pool memory and
+    replays, and one replayed step's stream and kernel ms beside the eager
+    step's (its loops stopping early, as every eager caller runs it), all
+    also as one JSON line."""
+    from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
+    from velocity_tpu_torch.pipeline import longvideo, multivideo, scan
+    from velocity_tpu_torch.pipeline.multivideo import run_batch
+    from velocity_tpu_torch.testing.synthetic_clip import render_lanes
+    from velocity_tpu_torch.utils.loops import fixed_trip_loops
+
+    solver = SolverConfig(dtype="float32")
+    compared = {}
+    singles = {}
+    seen = {}  # every graph the phase used, whether or not it is still kept
+    for backend in ("lanes", "fast"):
+        cfg = PipelineConfig(solver=solver, tracker=TrackerConfig(lk_backend=backend))
+        store = []
+        undo = _recording_segments_of(scan, store, 2)
+        try:
+            scan.ScanSpeedRunner(cfg, device=dev).run(clip.reader, annotation=clip.annotation,
+                                                      n_frames=N_FRAMES, verbose=False)
+        finally:
+            undo()
+        seen.update(scan.step_graphs())
+        singles[backend] = store[0]
+        if backend == "lanes":
+            args = store[0][0]
+            g = torch.Generator(device=dev)
+            g.set_state(store[0][2][0])
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with fixed_trip_loops():
+                    scan._frame(args[0][0], tuple(args[1:7]), args[7], args[8], g, args[10],
+                                args[11], args[12], False)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            print("graph: one eager frame step on the card under set_sync_debug_mode('error'): "
+                  "no synchronising call")
+        compared[backend] = _graph_matches_eager(dev, backend, store)
+
+    lanes = render_lanes(clip)
+    for backend in ("lanes", "fast"):
+        cfg = PipelineConfig(solver=solver, tracker=TrackerConfig(lk_backend=backend))
+        store = []
+        undo = _recording_segments_of(multivideo, store, 1)
+        try:
+            run_batch([c.reader for c in lanes], annotations=[c.annotation for c in lanes],
+                      n_frames=cfg.msv_frame, config=cfg, device=dev, verbose=False)
+        finally:
+            undo()
+        seen.update(scan.step_graphs())
+        compared[f"batch {backend}"] = _graph_matches_eager(dev, f"batch {backend}", store)
+
+    store = []
+    undo = _recording_segments_of(longvideo, store, 2)
+    try:
+        longvideo.LongVideoRunner(PipelineConfig(solver=solver), device=dev).run(
+            clip.reader, annotation=clip.annotation, verbose=False, window=8, overlap=3,
+            ba_refine=False)
+    finally:
+        undo()
+    seen.update(scan.step_graphs())
+    compared["longvideo"] = _graph_matches_eager(dev, "longvideo", store)
+
+    # a replayed segment under the sync debug mode, against its recorded run
+    args, kwargs, _states, (carry, outs), _ = singles["lanes"]
+    g = torch.Generator(device=dev)
+    g.set_state(singles["lanes"][2][0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = scan.scan_segment(*args[:9], g, *args[10:], **kwargs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    same = all(torch.equal(a, b) for a, b in zip(scan._flat(again), scan._flat((carry, outs))))
+    print(f"graph: a replayed segment of {len(args[0])} frames under "
+          f"set_sync_debug_mode('error'): no synchronising call, bit-equal to its first run: "
+          f"{same}")
+    if not same:
+        raise AssertionError("graph: a replayed segment differs from its first run")
+
+    rows = []
+    for key, gr in seen.items():
+        shapes = key[1]
+        k1, k2, k3 = (n for n, _ in gr.launches.values())
+        nodes = _node_count(gr.graph.raw_cuda_graph())
+        rows.append(dict(frame=list(shapes[0][0]), points=gr.n, backend=key[2].lk_backend,
+                         shard_features=key[2].shard_features,
+                         lean=key[5], nodes=nodes, capture_s=gr.capture_s,
+                         pool_mb=gr.pool_bytes / 2**20, inputs_mb=gr.input_bytes / 2**20,
+                         replays=gr.replays,
+                         launches_per_replay=dict(lk_block=k1, extract_slabs=k2,
+                                                  extract_patches=k3)))
+        print(f"graph: frame {shapes[0][0]} {key[2].lk_backend} shard_features "
+              f"{key[2].shard_features} lean {key[5]}: {nodes} nodes, captured in "
+              f"{gr.capture_s:.2f} s (warm-up included), pool {gr.pool_bytes / 2**20:.1f} MiB "
+              f"and inputs {gr.input_bytes / 2**20:.1f} MiB, "
+              f"{gr.replays} replays so far, per replay K1 {k1} K2 {k2} K3 {k3}")
+    print(f"graph: {len(rows)} graphs ({len(scan.step_graphs())} kept), frames compared "
+          f"{compared}; device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved now")
+
+    # one replayed step beside one eager step, each engine on one lane
+    for label, rec in singles.items():
+        args = rec[0]
+        inputs = (args[0][0], tuple(args[1:7]), args[7], args[8], torch.Generator(device=dev))
+        gr = scan._graph_step(*inputs[:4], args[10], args[11], args[12], False)
+        prof = _replay_profile(dev, gr, inputs)
+        with _annotating(label) as names:
+            eager = _replay_profile(dev, lambda *a: scan._frame(*a, args[10], args[11],
+                                                               args[12], False), inputs, names)
+        print(f"graph {label}: one replayed step {prof['event_ms']:.3f} ms of stream time, "
+              f"{prof['activities']} device activities in {prof['kernel_ms']:.3f} ms, busy "
+              f"{prof['busy']:.1%}; one eager step {eager['event_ms']:.3f} ms, "
+              f"{eager['activities']} activities in {eager['kernel_ms']:.3f} ms, busy "
+              f"{eager['busy']:.1%}{eager['shares']}")
+        rows.append(dict(profile=label, replay=prof, eager=eager))
+    print(json.dumps({"graphs": rows}))
+    del gr
+    seen.clear()
+    reserved = torch.cuda.memory_reserved()
+    scan.release_step_graphs()
+    print(f"graph: release_step_graphs(): {reserved / 2**30:.2f} -> "
+          f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
 
 
 def phase_driver(dev, clip):
@@ -1462,7 +1759,6 @@ def _run_command(argv, clip):
     annotation in ``args.video`` and ``args.annotation``, run the command
     with its standard output captured; returns (args, the JSON object of
     its last line, wall seconds)."""
-    import contextlib
     import io
 
     from velocity_tpu_torch import cli
@@ -1671,6 +1967,7 @@ def main() -> int:
     rows = {"lk_block": k1_rows, "extract_slabs": k2_rows, "extract_patches": k3_rows}
     lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"), rows)
     fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"), rows)
+    phase_graph(dev, clip)
     phase_driver(dev, clip)
     phase_ba(dev, clip)
     phase_ba_solvers(dev)

@@ -17,7 +17,12 @@ from the same inputs:
   full-resolution forward-backward LK and the stage-3 affine's RANSAC;
 - ``stage 3``: ``_track_fine_p``, the affine-warped fine LK;
 - ``pose LM``: ``estimate_world_camera_pose`` on stage 3's points;
-- ``whole step``: ``fused_frame_step_pyr``, all of the above.
+- ``whole step``: ``fused_frame_step_pyr``, all of the above, eager (its
+  loops stop early, with a host read per trip);
+- ``captured step`` (CUDA only): the same step as ``scan_segment`` runs it
+  on a card, one replay of its CUDA graph (``pipeline/scan.py``; its loops
+  at their fixed trip count), the inputs and the frame's RANSAC noise
+  copied in first; the capture is made before the timing.
 
 For each: ``event ms``, CUDA events around ``REPS`` calls, per call, the
 median of ``ROUNDS`` (stream time: the device's work and its idle gaps
@@ -25,8 +30,9 @@ while the host launches or reads back); ``wall ms``, the host's time per
 call, the mean over the same rounds, each ending in a synchronisation
 (``utils.profiling.StageTimer(sync=True)``); ``kernel ms`` and ``kernels``,
 the device time and count of the kernels of one call under
-``torch.profiler``. ``event ms`` near ``kernel ms`` means the stage keeps
-the device busy; far above it, the host sets the pace. Prints one line per
+``torch.profiler``; ``busy``, kernel ms over event ms. ``event ms`` near
+``kernel ms`` means the stage keeps the device busy; far above it, the
+host sets the pace. Prints one line per
 stage, the card's name and power limit, and the table as JSON; on the CPU
 (``--device cpu``) only ``wall ms`` is a number.
 """
@@ -98,7 +104,7 @@ def _stages(x):
                              x["gen"], tc)
     p_new, vg_new = _track_fine_p(x["pyr0"], x["pyr1"], x["pts"], x["vg"], T23, tc)
     eye = torch.eye(3, dtype=torch.float32, device=x["im1"].device)
-    return {
+    stages = {
         "pyramids": lambda: frame_pyramids(x["im1"], tc),
         "stages 1+2": lambda: _track_stages_p(x["pyr0"], x["pyr1"], x["spyr0"], x["spyr1"],
                                               x["pts"], x["vg"], x["gen"], tc),
@@ -110,6 +116,14 @@ def _stages(x):
             x["pyr0"], x["spyr0"], x["im1"], x["pts"], x["vg"], x["vp"], x["p3"], x["intr"],
             x["gen"], tc, cfg.solver, torch.float32, x["t0"]),
     }
+    if x["im1"].device.type == "cuda":
+        from velocity_tpu_torch.pipeline.scan import _graph_step
+
+        inputs = (x["im1"], (x["pyr0"], x["spyr0"], x["pts"], x["vg"], x["vp"], x["t0"]),
+                  x["p3"], x["intr"])
+        graph = _graph_step(*inputs, tc, cfg.solver, torch.float32, False)
+        stages["captured step"] = lambda: graph(*inputs, x["gen"])
+    return stages
 
 
 def _kernel_time(fn):
@@ -149,10 +163,12 @@ def profile_stages(dev, lanes: int = 0) -> list:
                "kernel_ms": None, "kernels": None}
         if dev.type == "cuda":
             row["kernel_ms"], row["kernels"] = _kernel_time(fn)
+            row["busy"] = row["kernel_ms"] / row["event_ms"]
         rows.append(row)
-        print(f"{name:12s} event {row['event_ms'] or float('nan'):9.3f} ms  wall "
+        print(f"{name:13s} event {row['event_ms'] or float('nan'):9.3f} ms  wall "
               f"{row['wall_ms']:9.3f} ms  kernels {row['kernels']} in "
-              f"{row['kernel_ms'] or float('nan'):8.3f} ms")
+              f"{row['kernel_ms'] or float('nan'):8.3f} ms  busy "
+              f"{row.get('busy', float('nan')):.1%}")
     return rows
 
 

@@ -78,7 +78,7 @@ def block_iters_ref(
     Masks are bool; returns (pts, done, prev_delta)."""
     dtype = pts.dtype
     half = (win - 1) * 0.5
-    eps2 = torch.tensor(eps * eps, dtype=dtype, device=pts.device)
+    eps2 = torch.full((), eps * eps, dtype=dtype, device=pts.device)
     lo, hi = (1.0, n_taps - 2.0) if cubic else (0.0, n_taps - 1.0)
     for j in range(BLOCK_ITERS):
         ox = pts[0] - half + bx

@@ -43,6 +43,7 @@ from velocity_tpu_torch.ops.lk_block_pallas import (  # noqa: F401
 )
 from velocity_tpu_torch.ops.pyramid import build_pyramid
 from velocity_tpu_torch.ops.slab_pallas import extract_slabs
+from velocity_tpu_torch.utils.loops import fixed_trips
 
 # Tap count of the warped-extraction stencil (see the JAX twin).
 WARP_TAPS = 8
@@ -160,10 +161,13 @@ def _level_loop(
     """Blocked LK iteration loop, shared by plain and warped destinations.
 
     Each block (re)extracts destination patches anchored at the current
-    estimates, then runs BLOCK_ITERS updates (K1). The loop exits once no
-    trackable point is left undone; the blocks it skips would change
-    nothing, since only active (trackable, not done) points move. With a
-    stack ``dimg`` (V, H, W) the loop runs while any lane has such a point;
+    estimates, then runs BLOCK_ITERS updates (K1). Run eagerly, the loop
+    exits once no trackable point is left undone (one host read per
+    block), as JAX's ``while_loop`` does; the blocks it skips would change
+    nothing, since only active (trackable, not done) points move. Where the
+    step is captured (``utils/loops.py``) every block of the level runs,
+    ceil(iters / BLOCK_ITERS) of them, with no host read. With a stack
+    ``dimg`` (V, H, W) the loop runs while any lane has such a point;
     ``warp`` is then one map per point.
     """
     N = pts0.shape[1]
@@ -188,8 +192,9 @@ def _level_loop(
     pts = pts0.contiguous()
     done = torch.zeros(N, dtype=torch.bool, device=pts.device)
     prev_delta = torch.zeros((2, N), dtype=dtype, device=pts.device)
+    fixed = fixed_trips()
     for blk in range(n_blocks):
-        if not bool(torch.any(trackable & ~done)):
+        if not fixed and not bool(torch.any(trackable & ~done)):
             break
         if warp is None:
             ci = torch.floor(pts).to(torch.int32)
@@ -246,8 +251,8 @@ def lk_pyramidal_lanes(
     N = pts_src.shape[0]
     dev = pts_src.device
     half = (win - 1) * 0.5
-    eig_thresh = torch.tensor(min_eig_threshold * 1024.0, dtype=dtype, device=dev)
-    tiny16 = torch.tensor(torch.finfo(dtype).tiny * 16, dtype=dtype, device=dev)
+    eig_thresh = torch.full((), min_eig_threshold * 1024.0, dtype=dtype, device=dev)
+    tiny16 = torch.full((), torch.finfo(dtype).tiny * 16, dtype=dtype, device=dev)
 
     ptsT = pts_src.T  # (2, N)
     cur = (guess if guess is not None else pts_src).to(dtype).T

@@ -4,7 +4,10 @@ K point triples per call are drawn by masked Gumbel top-3, each gives a
 closed-form 2x3 affine, the largest masked inlier count wins (first maximum
 on ties, as ``jnp.argmax``), then a guarded least-squares refit runs twice.
 The Gumbel noise comes from a ``torch.Generator``; a caller may pass the
-noise itself (``gumbel``), which is how the tests reproduce the JAX draws.
+noise itself (``gumbel``), which is how the tests reproduce the JAX draws,
+or, in place of the generator, a ``DrawnNoise``: noise drawn ahead, in the
+order the calls would draw it (the frame step captured in a CUDA graph
+reads its noise from buffers filled before each replay).
 
 Lanes (JAX's vmap over videos): inputs with a leading lane axis, (V, N, 2),
 and one generator per lane, each lane drawing its noise as it does alone.
@@ -81,6 +84,31 @@ def gumbel_noise(trials: int, n: int, generator: torch.Generator | None = None,
     return -torch.log((-torch.log(u.clamp_min(tiny))).clamp_min(tiny))
 
 
+def draw_gumbel(generator, trials: int, n: int, device, lanes: bool = False):
+    """The noise ``estimate_affine_ransac`` draws from ``generator``: (trials,
+    n), or with ``lanes`` (V, trials, n) from a list of V generators, lane v
+    from the v-th."""
+    if lanes:
+        return torch.stack([gumbel_noise(trials, n, g, device) for g in generator])
+    return gumbel_noise(trials, n, generator, device)
+
+
+class DrawnNoise:
+    """Noise drawn ahead of the RANSAC calls that take it: passed in place
+    of their generator, each ``estimate_affine_ransac`` call takes the next
+    tensor of ``draws``, in order; ``taken`` counts them."""
+
+    def __init__(self, draws):
+        self._draws = list(draws)
+        self.taken = 0
+
+    def take(self):
+        if self.taken == len(self._draws):
+            raise RuntimeError(f"DrawnNoise: more than {len(self._draws)} RANSAC calls")
+        self.taken += 1
+        return self._draws[self.taken - 1]
+
+
 def _hypotheses(src, dst, idx3):
     """One lane's exact affines through its (K, 3) triples and their
     predictions: (Ms (K, 2, 3), safe (K,), pred (K, N, 2))."""
@@ -107,9 +135,9 @@ def estimate_affine_ransac(
     """RANSAC 2D affine from masked correspondences src, dst (N, 2).
 
     ``gumbel``: optional (trials, N) f32 noise; drawn from ``generator``
-    when absent. Lanes: src, dst (V, N, 2), mask (V, N), ``generator`` a
-    list of V generators (lane v draws from the v-th), ``gumbel`` (V,
-    trials, N).
+    when absent (taken from it where it is a ``DrawnNoise``). Lanes: src,
+    dst (V, N, 2), mask (V, N), ``generator`` a list of V generators (lane
+    v draws from the v-th), ``gumbel`` (V, trials, N).
     """
     dtype = src.dtype
     dev = src.device
@@ -118,13 +146,11 @@ def estimate_affine_ransac(
     if mask is None:
         mask = torch.ones(lead + (N,), dtype=torch.bool, device=dev)
     if gumbel is None:
-        if lead:
-            gumbel = torch.stack([gumbel_noise(trials, N, g, dev) for g in generator])
-        else:
-            gumbel = gumbel_noise(trials, N, generator, dev)
+        gumbel = (generator.take() if isinstance(generator, DrawnNoise)
+                  else draw_gumbel(generator, trials, N, dev, lanes=bool(lead)))
 
     # 3 distinct-ish valid indices per trial via masked Gumbel top-3
-    neg_inf = torch.tensor(-float("inf"), dtype=torch.float32, device=dev)
+    neg_inf = torch.full((), -float("inf"), dtype=torch.float32, device=dev)
     logits = torch.where(mask, torch.zeros((), dtype=torch.float32, device=dev), neg_inf)
     g = gumbel.to(device=dev, dtype=torch.float32) + logits[..., None, :]
     idx3 = torch.topk(g, 3, dim=-1).indices  # (..., trials, 3)
@@ -155,7 +181,7 @@ def estimate_affine_ransac(
         n_in = torch.where(better, n_ref, n_in)
 
     # guard: if every hypothesis failed, fall back to identity
-    eye = torch.tensor([[1.0, 0, 0], [0, 1.0, 0]], dtype=dtype, device=dev)
+    eye = torch.eye(2, 3, dtype=dtype, device=dev)
     pred_i = src @ eye[:, :2].T + eye[:, 2]
     d2_i = torch.sum((pred_i - dst) ** 2, dim=-1)
     inl_i = mask & (d2_i <= thr2)

@@ -15,7 +15,6 @@ videos hands them one; each image of a stack gets the bits of its own call.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -55,8 +54,12 @@ def resize_nearest(img, scale: float):
     H, W = img.shape[-2:]
     h = int(round(H * scale))
     w = int(round(W * scale))
-    rows = np.minimum(np.floor(np.arange(h) / scale).astype(np.int64), H - 1)
-    cols = np.minimum(np.floor(np.arange(w) / scale).astype(np.int64), W - 1)
-    dev = img.device
-    out = img.index_select(-2, torch.as_tensor(rows, device=dev))
-    return out.index_select(-1, torch.as_tensor(cols, device=dev))
+    out = img.index_select(-2, _nearest_index(h, H, scale, img.device))
+    return out.index_select(-1, _nearest_index(w, W, scale, img.device))
+
+
+def _nearest_index(n: int, size: int, scale: float, device):
+    """min(floor(arange(n) / scale), size - 1) as int64 on ``device``, in
+    f64 as numpy computes it, made there without a host-to-device copy."""
+    src = torch.floor(torch.arange(n, dtype=torch.float64, device=device) / scale)
+    return torch.clamp(src.to(torch.int64), max=size - 1)

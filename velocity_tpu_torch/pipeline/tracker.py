@@ -116,6 +116,11 @@ def _car_mask(pts, valid, cfg: TrackerConfig):
     return torch.where(edge(torch.sum(mc, dim=-1)) >= 8, mc, valid)
 
 
+# RANSAC calls of one frame step, in the order they draw their noise: stage
+# 1's inliers, then the stage-3 affine from the stage-2 survivors
+RANSAC_CALLS = 2
+
+
 def _ransac(src, dst, mask, cfg: TrackerConfig, generator):
     return estimate_affine_ransac(src, dst, mask=mask, generator=generator,
                                   trials=cfg.ransac_trials, threshold=cfg.ransac_threshold)
@@ -215,7 +220,7 @@ def _step_core(pyr_prev, spyr_prev, pyr_cur, spyr_cur, pts, vg, vp, p3, intr,
                generator, t0, cfg, solver_cfg, solver_dtype):
     """Track + mask composition + pose solve on prebuilt pyramids."""
     from velocity_tpu_torch.config import SolverConfig
-    from velocity_tpu_torch.solvers.pose import estimate_world_camera_pose
+    from velocity_tpu_torch.solvers.pose import estimate_world_camera_pose, unit_z
 
     if solver_cfg is None:
         solver_cfg = SolverConfig()
@@ -227,8 +232,7 @@ def _step_core(pyr_prev, spyr_prev, pyr_cur, spyr_cur, pts, vg, vp, p3, intr,
     vp_new = vp & vg_new
 
     if t0 is None:
-        t0 = torch.tensor([0.0, 0.0, 1.0], dtype=solver_dtype, device=dev).expand(
-            pts.shape[:-2] + (3,))
+        t0 = unit_z(solver_dtype, dev).expand(pts.shape[:-2] + (3,))
     pose = estimate_world_camera_pose(
         intr,
         p_new.to(solver_dtype),
@@ -261,6 +265,13 @@ def fused_frame_step_pyr(
     pyramids once and returns them for the next step, then
     (pts', vg', vp', t, residual_rms, p_proj, n_stage2, T23).
     ``t0`` warm-starts the pose solve from the previous translation.
+
+    The step copies nothing to the device. Its loops (JAX's
+    ``lax.while_loop`` of the LK blocks and of the pose LM) stop early where
+    it runs eagerly, with one host read per trip; while it is captured
+    (``utils/loops.py``) they run their fixed trip count and it reads
+    nothing back, with the same bits, so ``scan_segment`` captures it as a
+    CUDA graph on a card.
 
     With lanes (any backend and ``shard_features``): ``im_cur`` (V, H, W),
     the pyramids' levels (V, h, w), pts (V, N, 2), vg and vp (V, N), p3

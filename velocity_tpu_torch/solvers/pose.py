@@ -351,6 +351,12 @@ def plate_pose_candidates(
     return found
 
 
+def unit_z(dtype, device):
+    """(0, 0, 1), the pose solves' default start, made on ``device`` without
+    a host-to-device copy."""
+    return torch.eye(3, dtype=dtype, device=device)[2]
+
+
 def _norm_rows(d):
     return torch.sqrt(torch.sum(d * d, dim=-1))
 
@@ -376,7 +382,7 @@ def estimate_world_camera_pose(
     dev = p.device
     lead = p.shape[:-2]
     if t0 is None:
-        t0 = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=dev).expand(lead + (3,))
+        t0 = unit_z(dtype, dev).expand(lead + (3,))
     if R0 is None:
         R0 = torch.eye(3, dtype=dtype, device=dev)
     if mask is None:
