@@ -29,11 +29,15 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
   capture time, pool memory and per-replay launches, and one replayed
   step's stream time, device activities and busy share beside one eager
   step's;
-- phase ``driver``: ``SpeedEstimator.run``, the per-frame driver, beside the
-  scan runner in turns, then with the feature-match rescue forced on every
-  frame (``min_affine_inliers`` huge) through a matcher built from the
-  clip's known motion (the card's machine has no cv2), directly and through
-  the scan runner's own rescue;
+- phase ``driver``: ``SpeedEstimator.run``, the per-frame driver, which
+  replays the scan runner's capture of the step once a frame (no new
+  capture, N_FRAMES - 1 replays a run, K1 and K2 launches beside the scan
+  runner's), beside the scan runner in turns, then with the feature-match
+  rescue forced on every frame (``min_affine_inliers`` huge) through a
+  matcher built from the clip's known motion (the card's machine has no
+  cv2), directly and through the scan runner's own rescue; the plain and
+  the forced run each bit-equal to the eager driver (the step put back to
+  the eager ``fused_frame_step_pyr``);
 - phase ``ba``: ``ScanSpeedRunner.run`` with ``anchor="ba"``, then (with no
   clip) ``ba_schur`` (f32 and f64, dense and CG camera solver) at 20 cameras
   x 1024 tracks and ``ba_dense`` at 256 tracks on the card, each held against
@@ -44,6 +48,8 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
   ``velocity_tpu_torch/testing/synthetic_clip.py``), with a
   GPS fix and a capture time per still: its kernels, speed, residual,
   the frames replenished and the lanes promoted, and the georegistration;
+  the 12 MP step's capture (seconds, pool), cold and warm walls, the warm
+  run bit-equal to the eager stills driver;
 - phase ``multivideo``: ``run_batch`` over three 1080p clips of 20 frames
   (``render_lanes``; lane 0 is the clip above), one batched frame step per
   frame for the three lanes, then the three single scan runner runs of the
@@ -77,9 +83,11 @@ widths (1024 features, 1024 RANSAC trials) and the f32 solver:
   bit to ``SpeedEstimator.run`` and ``LongVideoRunner.run`` of the same
   clip and config; ``graft_entry_torch.entry()`` (K1 and K2 launched,
   outputs finite) and ``dryrun_multichip(4)`` (2 x 2 in-process shards on
-  the card) against a 1 x 1 mesh; ``native_loader.available()``;
+  the card) against a 1 x 1 mesh; ``native_loader.available()``; the
+  steps ``speed`` replayed and captured (seconds, pool);
 - phase ``bench``: ``bench_torch.run_bench`` (the port's bench, lean runs)
-  on the clip in ``scan`` and ``frames`` modes, each held to the truth and
+  on the clip in ``scan`` and ``frames`` modes (both replay the captured
+  step; each mode's captures printed), each held to the truth and
   the JAX CPU value; the scan runner lean and full in turns, the lean
   trajectory bit-equal to the full one; ``bench_ba_torch.py`` written to a
   temporary directory, every row's value finite.
@@ -774,12 +782,12 @@ def _recording_segments_of(module, store, first: int):
 
 def _eager_segment(dev, args, kwargs, states):
     """A recorded ``scan_segment`` call again, frame by frame through the
-    eager step called directly on the card (``scan._frame``, the body the
+    eager step called directly on the card (``step_graph._frame``, the body the
     graph captured, in the captured form of its loops, so that it makes the
     graph's launches), from generators set to the recorded states: (carry,
     outs stacked as the segment stacks them, launches counted)."""
     from velocity_tpu_torch.ops import launches
-    from velocity_tpu_torch.pipeline import scan
+    from velocity_tpu_torch.pipeline import step_graph
     from velocity_tpu_torch.utils.loops import fixed_trip_loops
 
     frames, pyr, spyr, pts, vg, vp, t0, p3, intr, gen, tcfg, scfg, sdt = args[:13]
@@ -796,7 +804,7 @@ def _eager_segment(dev, args, kwargs, states):
     before = launches.read()
     with fixed_trip_loops():
         for j in range(k):
-            carry, rec = scan._frame(frames[:, j] if lanes else frames[j], carry, p3, intr,
+            carry, rec = step_graph._frame(frames[:, j] if lanes else frames[j], carry, p3, intr,
                                      per_frame[j], tcfg, scfg, sdt, lean)
             recs.append(rec)
     torch.cuda.synchronize()
@@ -810,13 +818,13 @@ def _graph_matches_eager(dev, label, store):
     the eager step on the same inputs: every output and the carry bit for
     bit, and the launches the replays counted equal to those the eager
     steps made. Returns the frames compared."""
-    from velocity_tpu_torch.pipeline import scan
+    from velocity_tpu_torch.pipeline import step_graph
 
     frames = 0
     for n, (args, kwargs, states, (carry, outs), counted) in enumerate(store):
         e_carry, e_outs, e_counted = _eager_segment(dev, args, kwargs, states)
-        got = scan._flat((carry, outs))
-        want = scan._flat((e_carry, e_outs))
+        got = step_graph._flat((carry, outs))
+        want = step_graph._flat((e_carry, e_outs))
         same = len(got) == len(want) and all(
             a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
             for a, b in zip(got, want))
@@ -894,7 +902,7 @@ def phase_graph(dev, clip):
     step's (its loops stopping early, as every eager caller runs it), all
     also as one JSON line."""
     from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
-    from velocity_tpu_torch.pipeline import longvideo, multivideo, scan
+    from velocity_tpu_torch.pipeline import longvideo, multivideo, scan, step_graph
     from velocity_tpu_torch.pipeline.multivideo import run_batch
     from velocity_tpu_torch.testing.synthetic_clip import render_lanes
     from velocity_tpu_torch.utils.loops import fixed_trip_loops
@@ -912,7 +920,7 @@ def phase_graph(dev, clip):
                                                       n_frames=N_FRAMES, verbose=False)
         finally:
             undo()
-        seen.update(scan.step_graphs())
+        seen.update(step_graph.step_graphs())
         singles[backend] = store[0]
         if backend == "lanes":
             args = store[0][0]
@@ -922,7 +930,7 @@ def phase_graph(dev, clip):
             torch.cuda.set_sync_debug_mode("error")
             try:
                 with fixed_trip_loops():
-                    scan._frame(args[0][0], tuple(args[1:7]), args[7], args[8], g, args[10],
+                    step_graph._frame(args[0][0], tuple(args[1:7]), args[7], args[8], g, args[10],
                                 args[11], args[12], False)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
@@ -941,7 +949,7 @@ def phase_graph(dev, clip):
                       n_frames=cfg.msv_frame, config=cfg, device=dev, verbose=False)
         finally:
             undo()
-        seen.update(scan.step_graphs())
+        seen.update(step_graph.step_graphs())
         compared[f"batch {backend}"] = _graph_matches_eager(dev, f"batch {backend}", store)
 
     store = []
@@ -952,7 +960,7 @@ def phase_graph(dev, clip):
             ba_refine=False)
     finally:
         undo()
-    seen.update(scan.step_graphs())
+    seen.update(step_graph.step_graphs())
     compared["longvideo"] = _graph_matches_eager(dev, "longvideo", store)
 
     # a replayed segment under the sync debug mode, against its recorded run
@@ -965,7 +973,8 @@ def phase_graph(dev, clip):
         again = scan.scan_segment(*args[:9], g, *args[10:], **kwargs)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    same = all(torch.equal(a, b) for a, b in zip(scan._flat(again), scan._flat((carry, outs))))
+    same = all(torch.equal(a, b)
+               for a, b in zip(step_graph._flat(again), step_graph._flat((carry, outs))))
     print(f"graph: a replayed segment of {len(args[0])} frames under "
           f"set_sync_debug_mode('error'): no synchronising call, bit-equal to its first run: "
           f"{same}")
@@ -989,7 +998,7 @@ def phase_graph(dev, clip):
               f"{gr.capture_s:.2f} s (warm-up included), pool {gr.pool_bytes / 2**20:.1f} MiB "
               f"and inputs {gr.input_bytes / 2**20:.1f} MiB, "
               f"{gr.replays} replays so far, per replay K1 {k1} K2 {k2} K3 {k3}")
-    print(f"graph: {len(rows)} graphs ({len(scan.step_graphs())} kept), frames compared "
+    print(f"graph: {len(rows)} graphs ({len(step_graph.step_graphs())} kept), frames compared "
           f"{compared}; device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved now")
 
@@ -997,10 +1006,10 @@ def phase_graph(dev, clip):
     for label, rec in singles.items():
         args = rec[0]
         inputs = (args[0][0], tuple(args[1:7]), args[7], args[8], torch.Generator(device=dev))
-        gr = scan._graph_step(*inputs[:4], args[10], args[11], args[12], False)
+        gr = step_graph._graph_step(*inputs[:4], args[10], args[11], args[12], False)
         prof = _replay_profile(dev, gr, inputs)
         with _annotating(label) as names:
-            eager = _replay_profile(dev, lambda *a: scan._frame(*a, args[10], args[11],
+            eager = _replay_profile(dev, lambda *a: step_graph._frame(*a, args[10], args[11],
                                                                args[12], False), inputs, names)
         print(f"graph {label}: one replayed step {prof['event_ms']:.3f} ms of stream time, "
               f"{prof['activities']} device activities in {prof['kernel_ms']:.3f} ms, busy "
@@ -1012,17 +1021,85 @@ def phase_graph(dev, clip):
     del gr
     seen.clear()
     reserved = torch.cuda.memory_reserved()
-    scan.release_step_graphs()
+    step_graph.release_step_graphs()
     print(f"graph: release_step_graphs(): {reserved / 2**30:.2f} -> "
           f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved")
 
 
+def _replays():
+    """{key: replays so far} of the captured steps kept now."""
+    from velocity_tpu_torch.pipeline import step_graph
+
+    return {k: g.replays for k, g in step_graph.step_graphs().items()}
+
+
+def _graphs_line(label, before) -> str:
+    """Each captured step kept now that ``before`` ({key: replays}) lacked,
+    or whose replays rose since: its frame, capture seconds, pool MiB and
+    the replays it added."""
+    from velocity_tpu_torch.pipeline import step_graph
+
+    out = []
+    for key, gr in step_graph.step_graphs().items():
+        added = gr.replays - before.get(key, 0)
+        if added or key not in before:
+            kind = "new capture" if key not in before else "kept"
+            out.append(f"frame {list(key[1][0][0])} {kind} ({gr.capture_s:.2f} s, pool "
+                       f"{gr.pool_bytes / 2**20:.1f} MiB), "
+                       f"{added} replays")
+    return f"{label}: captured steps: " + ("; ".join(out) or "none replayed")
+
+
+@contextlib.contextmanager
+def _eager_drivers():
+    """The per-frame drivers' step put back to the eager
+    ``fused_frame_step_pyr`` while the context lasts (the reference the
+    replaying drivers are held to)."""
+    from velocity_tpu_torch.pipeline import speedest
+
+    real = speedest._captured_step
+    speedest._captured_step = lambda *args: None
+    try:
+        yield
+    finally:
+        speedest._captured_step = real
+
+
+def _same_run(a, b) -> bool:
+    """B, S[:, 2:], the track and reprojection history and the validity of
+    two runs equal bit for bit."""
+    return all(np.array_equal(x, y, equal_nan=True) for x, y in (
+        (a.B, b.B), (a.S[:, 2:], b.S[:, 2:]), (a.track_px, b.track_px),
+        (a.proj_px, b.proj_px), (a.valid, b.valid)))
+
+
+def _held_to_eager(label, res, launches, run):
+    """``run()`` again with the drivers' step eager: the replayed run
+    ``res`` must equal it bit for bit. Prints both walls and launches."""
+    _reset_counts()
+    with _eager_drivers():
+        eager = run()
+    counts, _ = _read_counts()
+    same = _same_run(res, eager)
+    print(f"{label}: replayed run bit-equal to the eager driver's: {same}; wall replayed "
+          f"{res.timings['wall_s']:.3f} s, eager {eager.timings['wall_s']:.3f} s; launches "
+          f"K1/K2 replayed {launches['lk_block']}/{launches['extract_slabs']}, eager "
+          f"{counts['lk_block']}/{counts['extract_slabs']}")
+    if not same:
+        raise AssertionError(f"{label}: the replaying driver differs from the eager driver")
+
+
 def phase_driver(dev, clip):
-    """The per-frame driver on the full-size clip: beside the scan runner in
-    turns (scan, driver, driver, scan; warm), its K1 and K2 launches, its
-    speed within the limits; then with the rescue forced on every frame
-    through the clip's known motion, directly and through the scan runner's
-    rescue branch: every frame's T23 must be the matcher's."""
+    """The per-frame driver on the full-size clip, which replays the frame
+    step's captured graph: beside the scan runner in turns (scan, driver,
+    driver, scan; warm), reusing the scan runner's capture (no new key,
+    N_FRAMES - 1 replays a run), its K1 and K2 launches beside the scan
+    runner's, its speed within the limits, bit-equal to the eager driver;
+    then with the rescue forced on every frame through the clip's known
+    motion, bit-equal to the eager driver, directly and through the scan
+    runner's rescue branch: every frame's T23 must be the matcher's.
+    Returns {path: launches} of the plain ("driver") and the forced
+    ("rescue") replayed runs."""
     from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
     from velocity_tpu_torch.pipeline import SpeedEstimator
     from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
@@ -1033,11 +1110,21 @@ def phase_driver(dev, clip):
     est = SpeedEstimator(PipelineConfig(solver=solver), device=dev)
 
     walls = {"scan": [], "driver": []}
+    _reset_counts()
     scan_res = scan.run(clip.reader, **run_kw)
+    scan_counts, _ = _read_counts()
     walls["scan"].append(scan_res.timings["wall_s"])
+    before = _replays()
     _reset_counts()
     res = est.run(clip.reader, **run_kw)
     launches, by_shape = _read_counts()
+    after = _replays()
+    added = [n - before[k] for k, n in after.items() if k in before and n != before[k]]
+    print(_graphs_line("driver", before))
+    if set(after) != set(before) or added != [N_FRAMES - 1]:
+        raise AssertionError(f"driver: not one replay of the scan runner's capture a frame: "
+                             f"{len(set(after) - set(before))} new captures, replays added "
+                             f"{added}")
     walls["driver"].append(res.timings["wall_s"])
     walls["driver"].append(est.run(clip.reader, **run_kw).timings["wall_s"])
     walls["scan"].append(scan.run(clip.reader, **run_kw).timings["wall_s"])
@@ -1051,12 +1138,14 @@ def phase_driver(dev, clip):
           f"{scan_res.speed_kmh:.4f}, JAX CPU driver {JAX_CPU_SPEED_KMH['driver']}), residual "
           f"{res.residual_px:.4f} px, trajectory bit-equal to the scan runner's: {same}; "
           f"launches K1 {launches['lk_block']} K2 {launches['extract_slabs']} "
-          f"{by_shape['lk_block']} {by_shape['extract_slabs']}")
+          f"{by_shape['lk_block']} {by_shape['extract_slabs']}, the scan runner's K1 "
+          f"{scan_counts['lk_block']} K2 {scan_counts['extract_slabs']}")
     _check_run("driver", res, clip, launches, ("lk_block", "extract_slabs"),
                JAX_CPU_SPEED_KMH["driver"])
     if abs(res.speed_kmh - scan_res.speed_kmh) > 1e-3 * scan_res.speed_kmh:
         raise AssertionError(f"driver speed {res.speed_kmh} vs scan runner "
                              f"{scan_res.speed_kmh}: one generator order, no frame rescued")
+    _held_to_eager("driver", res, launches, lambda: est.run(clip.reader, **run_kw))
 
     # ---- the rescue forced on every frame ----
     asked = []
@@ -1077,6 +1166,7 @@ def phase_driver(dev, clip):
         return out
 
     forced._frame_step_with_fallback = recording_step
+    before = _replays()
     _reset_counts()
     fres = forced.run(clip.reader, **run_kw)
     flaunches, _ = _read_counts()
@@ -1084,21 +1174,31 @@ def phase_driver(dev, clip):
             np.array_equal(a, u) for a, u in zip(asked, used)):
         raise AssertionError(f"forced rescue: {len(asked)} matcher calls, {len(used)} steps, "
                              "or a frame's T23 is not the matcher's")
-    print(f"driver, rescue forced on {len(asked)} frames: wall {fres.timings['wall_s']:.3f} s, "
-          f"{N_FRAMES / fres.timings['wall_s']:.3f} frames/s, speed {fres.speed_kmh:.4f} km/h, "
-          f"residual {fres.residual_px:.4f} px, every T23 the matcher's; launches K1 "
+    print(_graphs_line("driver, rescue forced (cold)", before))
+    print(f"driver, rescue forced on {len(asked)} frames: wall {fres.timings['wall_s']:.3f} s "
+          f"(its capture included), speed {fres.speed_kmh:.4f} km/h, residual "
+          f"{fres.residual_px:.4f} px, every T23 the matcher's; launches K1 "
           f"{flaunches['lk_block']} K2 {flaunches['extract_slabs']}")
     _check_run("forced rescue", fres, clip, flaunches, ("lk_block", "extract_slabs"), None)
+    del asked[:], used[:]
+    _reset_counts()
+    fres = forced.run(clip.reader, **run_kw)
+    flaunches, _ = _read_counts()
+    _held_to_eager("driver, rescue forced", fres, flaunches,
+                   lambda: forced.run(clip.reader, **run_kw))
 
     n_before = len(asked)
+    before = _replays()
     sres = ScanSpeedRunner(forced_cfg, device=dev, fallback_matcher=matcher).run(
         clip.reader, **run_kw)
     if len(asked) - n_before != N_FRAMES - 1 or sres.first_gray is not None:
         raise AssertionError("the scan runner did not hand the collapsed clip to the driver")
     if not np.allclose(sres.B, fres.B, rtol=1e-6, atol=1e-9):
         raise AssertionError("the scan runner's rescue and the driver disagree")
+    print(_graphs_line("scan runner, rescue forced", before))
     print(f"scan runner, rescue forced: re-ran through the driver, speed {sres.speed_kmh:.4f} "
           f"km/h, trajectory bit-equal to the driver's: {np.array_equal(sres.B, fres.B)}")
+    return {"driver": launches, "rescue": flaunches}
 
 
 def _events_ms(fn, rounds: int = 5) -> float:
@@ -1252,9 +1352,11 @@ def phase_stills(dev):
         return out
 
     est._replenish, est._promote_pending = counting_replenish, counting_promote
+    before = _replays()
     t0 = time.perf_counter()
     est.run(burst.stills(), annotation=burst.annotation, verbose=False)
-    print(f"stills cold run: {time.perf_counter() - t0:.2f} s")
+    print(f"stills cold run: {time.perf_counter() - t0:.2f} s, its capture included")
+    print(_graphs_line("stills", before))
     seen.clear()
     _reset_counts()
     res = est.run(burst.stills(), annotation=burst.annotation, verbose=False)
@@ -1273,6 +1375,8 @@ def phase_stills(dev):
         raise AssertionError(f"stills: no frame replenished or no lane promoted: {seen}")
     if not (np.isfinite(res.B[:, 6:12]).all() and np.all(res.B[:, 6:9] != 0)):
         raise AssertionError("stills: georegistration left B[:, 6:9] empty or non-finite")
+    _held_to_eager("stills", res, launches,
+                   lambda: est.run(burst.stills(), annotation=burst.annotation, verbose=False))
     return launches
 
 
@@ -1805,9 +1909,11 @@ def phase_cli(dev, clip):
     else:
         report.parent.mkdir(parents=True, exist_ok=True)
         argv += ["--plot", str(report)]
+    before = _replays()
     _reset_counts()
     args, got, cli_wall = _run_command(argv, clip)
     speed_counts, _ = _read_counts()
+    print(_graphs_line("cli speed", before))
     t0 = time.perf_counter()
     res = SpeedEstimator(cli._pipeline_config(args), device=dev).run(
         clip.reader, annotation=clip.annotation, n_frames=N_FRAMES, verbose=False)
@@ -1902,11 +2008,13 @@ def phase_bench(dev, clip):
     counts, results = {}, {}
     for mode, jax_kmh in (("scan", JAX_CPU_SPEED_KMH["lanes"]),
                           ("frames", JAX_CPU_SPEED_KMH["driver"])):
+        before = _replays()
         _reset_counts()
         out, res = bench_torch.run_bench(clip.reader, clip.annotation, n_frames=N_FRAMES,
                                          reps=BENCH_REPS, mode=mode, device=dev,
                                          clip="synthetic", reference_kmh=clip.speed_kmh)
         counts[mode], _ = _read_counts()
+        print(_graphs_line(f"bench {mode}", before))
         results[mode] = res
         print(json.dumps(out))
         print(f"bench {mode}: {out['value']:.3f} frames/s, launches over the warm-up and "
@@ -1968,10 +2076,10 @@ def main() -> int:
     lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"), rows)
     fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"), rows)
     phase_graph(dev, clip)
-    phase_driver(dev, clip)
+    drivers = phase_driver(dev, clip)
     phase_ba(dev, clip)
     phase_ba_solvers(dev)
-    phase_stills(dev)
+    stills = phase_stills(dev)
     multivideo = phase_multivideo(dev, clip)
     sharded_lk = phase_parallel(dev, clip)
     longvideo = phase_longvideo(dev)
@@ -1982,8 +2090,8 @@ def main() -> int:
     k2_main = next(r for r in k2_rows if r["size"] == 72)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
-    paths = {"lanes": lanes, "fast": fast, **multivideo, "sharded_lk": sharded_lk,
-             "longvideo": longvideo,
+    paths = {"lanes": lanes, "fast": fast, **drivers, "stills": stills, **multivideo,
+             "sharded_lk": sharded_lk, "longvideo": longvideo,
              **surface, "bench": bench}
 
     def by_path(name):

@@ -117,7 +117,7 @@ def _stages(x):
             x["gen"], tc, cfg.solver, torch.float32, x["t0"]),
     }
     if x["im1"].device.type == "cuda":
-        from velocity_tpu_torch.pipeline.scan import _graph_step
+        from velocity_tpu_torch.pipeline.step_graph import _graph_step
 
         inputs = (x["im1"], (x["pyr0"], x["spyr0"], x["pts"], x["vg"], x["vp"], x["t0"]),
                   x["p3"], x["intr"])

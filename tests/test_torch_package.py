@@ -53,6 +53,7 @@ MODULES = [
     "velocity_tpu_torch.pipeline.scan",
     "velocity_tpu_torch.pipeline.speedest",
     "velocity_tpu_torch.pipeline.stills",
+    "velocity_tpu_torch.pipeline.step_graph",
     "velocity_tpu_torch.pipeline.tracker",
     "velocity_tpu_torch.solvers.ba",
     "velocity_tpu_torch.solvers.linear_init",

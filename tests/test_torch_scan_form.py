@@ -332,7 +332,7 @@ def test_graph_segment_matches_the_eager_step_on_card(clips, lk_backend):
     its outputs and carry equal those of the eager step called frame by
     frame with a generator in the same state, bit for bit, on one lane and
     on two; the kernels' counters read one capture's launches per replay."""
-    from velocity_tpu_torch.pipeline import scan
+    from velocity_tpu_torch.pipeline import step_graph
 
     cfg = _cfg(lk_backend)
     dev = torch.device("cuda")
@@ -356,11 +356,11 @@ def test_graph_segment_matches_the_eager_step_on_card(clips, lk_backend):
         state = (pyr, spyr, pts, vg, vp, t0)
         want = []
         for j in range(seg.shape[1] if lanes > 1 else len(seg)):
-            state, rec = scan._frame(seg[:, j] if lanes > 1 else seg[j], state, p3, intr, g,
-                                     cfg.tracker, cfg.solver, torch.float32, False)
+            state, rec = step_graph._frame(seg[:, j] if lanes > 1 else seg[j], state, p3, intr,
+                                           g, cfg.tracker, cfg.solver, torch.float32, False)
             want.append(rec)
         axis = 1 if lanes > 1 else 0
         for got_o, want_o in zip(outs, zip(*want)):
             _same(got_o, torch.stack(want_o, dim=axis))
-        for got_c, want_c in zip(scan._flat(carry), scan._flat(state)):
+        for got_c, want_c in zip(step_graph._flat(carry), step_graph._flat(state)):
             _same(got_c, want_c)

@@ -4,7 +4,7 @@ Each kernel's wrapper (K1 ``lk_block_pallas.lk_block``, K2
 ``slab_pallas.extract_slabs``, K3 ``patch_pallas.extract_patches``) adds one
 to its ``launches`` and to ``launches_by_shape[shape]`` where it launches
 its kernel, and nowhere else. A CUDA graph launches its kernels through the
-wrappers only while it is captured: ``pipeline/scan.py`` sets the counters
+wrappers only while it is captured: ``pipeline/step_graph.py`` sets the counters
 back after a capture and adds the capture's counts at each replay.
 
 Counts are {kernel name: (launches, {shape: launches})}.

@@ -13,7 +13,12 @@ Torch twin of ``velocity_tpu/pipeline/speedest.py``. Frame protocol:
   frame msv_frame: the re-anchor (``pipeline/anchor.py``) replaces the
            structure and widens the solve to all features.
 
-``SpeedEstimator.run`` decodes, uploads and steps one frame at a time;
+``SpeedEstimator.run`` decodes, uploads and steps one frame at a time. On a
+card each step is one replay of the frame step's CUDA graph
+(``pipeline/step_graph.py``, the capture the scan runner's non-lean
+segments share), as JAX's driver calls its jitted step; the host then reads
+the stage-2 count for the rescue test and runs the rare rescue eagerly, as
+JAX runs it unjitted. On the CPU the step runs eagerly.
 ``ScanSpeedRunner`` (``pipeline/scan.py``) is the batch form of the same
 protocol and hands a clip whose tracking collapsed to this driver. With
 ``lean=True`` both read one packed summary per frame after the MSV frame
@@ -38,6 +43,7 @@ from velocity_tpu_torch.geometry.projection import Intrinsics, image_to_world_pl
 from velocity_tpu_torch.ops.harris import corner_subpix, good_features
 from velocity_tpu_torch.pipeline import report
 from velocity_tpu_torch.pipeline.roi import bounding_rect, inside_bbox
+from velocity_tpu_torch.pipeline.step_graph import _graph_step
 from velocity_tpu_torch.pipeline.tracker import (
     ThreeStageTracker, _track_fine_p, frame_pyramids, fused_frame_step_pyr, pack_summary)
 from velocity_tpu_torch.solvers.pose import estimate_world_camera_pose
@@ -196,6 +202,15 @@ def frames_available(cam: CameraInfo, start: int, n: int, step: int) -> int:
     return min(n, avail)
 
 
+def _captured_step(im, carry, p3, intr, cfg, solver_cfg, solver_dtype):
+    """The driver's captured frame step for these inputs on a card (the
+    non-lean capture, which the scan runner's segments share), or None on
+    the CPU, where the driver steps eagerly."""
+    if im.device.type != "cuda":
+        return None
+    return _graph_step(im, carry, p3, intr, cfg, solver_cfg, solver_dtype, False)
+
+
 class SpeedEstimator:
     """The per-frame driver, on ``device`` ("cuda" or "cpu").
 
@@ -265,18 +280,32 @@ class SpeedEstimator:
     # ------------------------------------------------------------ frame step
     def _frame_step_with_fallback(self, pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
                                   p3, intr, generator, sdt, prev_gray, gray, t_prev):
-        """One ``fused_frame_step_pyr`` + the host feature-match rescue on
+        """One ``fused_frame_step_pyr`` (on a card one replay of its captured
+        graph, eagerly on the CPU) + the host feature-match rescue on
         tracking collapse: when stage 2 leaves <= ``min_affine_inliers``
         survivors, a full-frame match of ``prev_gray`` and ``gray`` (uint8,
         host) supplies the affine prior, and the fine stage and the pose
-        solve run again. The matcher is the tracker's ``fallback_matcher``
-        where one was given, else ``affine_from_feature_match`` (cv2) at
-        half scale. Returns what ``fused_frame_step_pyr`` returns.
+        solve run again, eagerly. The matcher is the tracker's
+        ``fallback_matcher`` where one was given, else
+        ``affine_from_feature_match`` (cv2) at half scale. Returns what
+        ``fused_frame_step_pyr`` returns, T23 None where a replayed frame
+        was not rescued (the graph does not keep it). A replay's outputs
+        are the graph's buffers: read them before the next frame's step.
         """
         cfg = self.config
-        out = fused_frame_step_pyr(
-            pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
-            p3, intr, generator, cfg.tracker, cfg.solver, sdt, t_prev)
+        carry = (pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev, t_prev)
+        graph = _captured_step(im_dev, carry, p3, intr, cfg.tracker, cfg.solver, sdt)
+        if graph is None:
+            out = fused_frame_step_pyr(
+                pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
+                p3, intr, generator, cfg.tracker, cfg.solver, sdt, t_prev)
+        else:
+            carry_out, rec = graph(im_dev, carry, p3, intr, generator)
+            out = (*carry_out[:2], *rec, None)
+            # the carry the caller passed may be the last replay's outputs,
+            # which this replay overwrote: the rescue reads the previous
+            # frame's state from the input buffers the replay read it from
+            pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev, t_prev = graph.inputs[1]
         pyr_cur, spyr_cur, n2 = out[0], out[1], out[8]
         if int(n2) > cfg.tracker.min_affine_inliers:
             return out

@@ -270,8 +270,8 @@ def fused_frame_step_pyr(
     ``lax.while_loop`` of the LK blocks and of the pose LM) stop early where
     it runs eagerly, with one host read per trip; while it is captured
     (``utils/loops.py``) they run their fixed trip count and it reads
-    nothing back, with the same bits, so ``scan_segment`` captures it as a
-    CUDA graph on a card.
+    nothing back, with the same bits, so on a card it is captured as a
+    CUDA graph (``pipeline/step_graph.py``).
 
     With lanes (any backend and ``shard_features``): ``im_cur`` (V, H, W),
     the pyramids' levels (V, h, w), pts (V, N, 2), vg and vp (V, N), p3
