@@ -24,6 +24,7 @@ from velocity_tpu_torch.config import PipelineConfig
 from velocity_tpu_torch.solvers.ba import BAProblem
 from velocity_tpu_torch.solvers.schur import ba_schur
 from velocity_tpu_torch.solvers.triangulate import msv_refine_translation
+from velocity_tpu_torch.utils import profiling
 
 F64 = torch.float64
 
@@ -98,6 +99,7 @@ def resolve_plate_pose(intr64, q, track_px, cfg: PipelineConfig):
     return pose0, p3c, t_track, res_track
 
 
+@profiling.spanned("reanchor")
 def reanchor(
     cfg: PipelineConfig,
     cam,
@@ -113,7 +115,9 @@ def reanchor(
     """Return (p3_new, t_new or None, res_new or None) after the
     scale-transfer refinement, computed on the CPU in float64. ``t_new`` and
     ``res_new`` (rows 0..i) replace the trajectory and residual columns when
-    the refinement re-solved them."""
+    the refinement re-solved them. Inside a driver's run it is the span
+    ``reanchor`` and counts its solver's iterations as
+    ``reanchor.iterations``."""
     intr64 = cam.intrinsics(scale=scale).to(dtype=F64)
     if cfg.anchor == "ba":
         nf = track_px.shape[0]
@@ -134,6 +138,7 @@ def reanchor(
         # free rotations are unidentifiable on these tiny baselines and
         # corrupt the track
         res = ba_schur(prob, cfg.ba, fix_rotations=True)
+        profiling.count("reanchor.iterations", int(res.iterations))
         p3_new = np.array(p3)
         p3_new[vg] = res.points.numpy()[vg]
         # refined camera track -> absolute rows; the caller updates B
@@ -162,6 +167,7 @@ def reanchor(
         torch.as_tensor(origins, dtype=F64),
         config=cfg.solver,
     )
+    profiling.count("reanchor.iterations", int(msv.iterations))
     cloud = msv.points.numpy() - t_cur64
     p3_new = np.array(p3_base)
     p3_new[vg] = cloud[vg]

@@ -38,6 +38,7 @@ from velocity_tpu_torch.pipeline.speedest import (
     open_reader, require_device, resolve_annotation, resolve_start)
 from velocity_tpu_torch.pipeline.step_graph import _clone, _frame, _graph_step
 from velocity_tpu_torch.pipeline.tracker import frame_pyramids
+from velocity_tpu_torch.utils import profiling
 
 
 def scan_segment(frames, pyr0, spyr0, pts0, vg0, vp0, t0, p3, intr, generator,
@@ -75,12 +76,13 @@ def scan_segment(frames, pyr0, spyr0, pts0, vg0, vp0, t0, p3, intr, generator,
     stacks = None
     for j, gen in enumerate(per_frame):
         im = frames[:, j] if lanes else frames[j]
-        if im.device.type == "cuda":
-            if graph is None:
-                graph = _graph_step(im, carry, p3, intr, cfg, solver_cfg, solver_dtype, lean)
-            carry, rec = graph(im, carry, p3, intr, gen)
-        else:
-            carry, rec = _frame(im, carry, p3, intr, gen, cfg, solver_cfg, solver_dtype, lean)
+        if im.device.type == "cuda" and graph is None:
+            graph = _graph_step(im, carry, p3, intr, cfg, solver_cfg, solver_dtype, lean)
+        with profiling.span("step"):
+            if graph is not None:
+                carry, rec = graph(im, carry, p3, intr, gen)
+            else:
+                carry, rec = _frame(im, carry, p3, intr, gen, cfg, solver_cfg, solver_dtype, lean)
         if stacks is None:
             stacks = [o.new_empty(o.shape[:axis] + (k,) + o.shape[axis:]) for o in rec]
         for st, o in zip(stacks, rec):
@@ -277,6 +279,7 @@ class ScanSpeedRunner:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @profiling.recorded
     def run(self, video, annotation=None, n_frames=None, start_frame=None,
             verbose=True, lean: bool = False):
         """Run the pipeline over ``video``: a path (probed with the cv2
@@ -284,7 +287,8 @@ class ScanSpeedRunner:
         by that reader) or an object with the reader's interface (``.info``,
         ``.frames(start, count, step)``, context manager).
         ``timings["decoder"]`` names the decoder: "native", "python" or
-        "reader".
+        "reader"; ``timings["spans"]`` and ``timings["counts"]`` hold the
+        run's record (``utils/profiling.py``).
 
         ``lean=True`` (the bench's run) copies the frames after the MSV
         frame to the host as one packed (k, 6) summary: their track and
@@ -303,11 +307,13 @@ class ScanSpeedRunner:
         with open_reader(video, cfg.platform) as vr:
             cam = vr.info
             n = frames_available(cam, start, n, cfg.read_speed)
-            host, times, indices, marks["decoder"] = _decode(
-                vr, start, n, cfg.read_speed, pin=dev.type == "cuda",
-                path=None if vr is video else video)
+            with profiling.span("decode"):
+                host, times, indices, marks["decoder"] = _decode(
+                    vr, start, n, cfg.read_speed, pin=dev.type == "cuda",
+                    path=None if vr is video else video)
         n = host.shape[0]
-        frames = host.to(dev, non_blocking=True)
+        with profiling.span("upload"):
+            frames = host.to(dev, non_blocking=True)
         marks["decode_s"] = time.perf_counter() - t_wall0
 
         scale = cfg.native_scale
@@ -317,9 +323,12 @@ class ScanSpeedRunner:
         msv_i = cfg.msv_frame
 
         # ---- frame 0: features on the device, geometry on the host (f64) ----
-        p, valid, boxa, boxb = _init_features(cfg, frames[0], q)
-        pyr, spyr = frame_pyramids(frames[0], cfg.tracker)
-        t0_np, p3_np, res0 = _init_geometry(cfg, cam, q, p, valid, scale)
+        with profiling.span("init"):
+            with profiling.span("init.features"):
+                p, valid, boxa, boxb = _init_features(cfg, frames[0], q)
+            pyr, spyr = frame_pyramids(frames[0], cfg.tracker)
+            with profiling.span("init.geometry"):
+                t0_np, p3_np, res0 = _init_geometry(cfg, cam, q, p, valid, scale)
         marks["init_s"] = time.perf_counter() - t_wall0
 
         vg0 = valid.copy()
@@ -346,10 +355,12 @@ class ScanSpeedRunner:
 
         # ---- segment A: frames 1..msv ----
         seg_a = min(msv_i, n - 1)
-        carry, outs = scan_segment(frames[1 : seg_a + 1], pyr, spyr, pts0,
-                                   torch.as_tensor(vg0, device=dev), vp0, t0, p3, intr, gen,
-                                   cfg.tracker, cfg.solver, sdt)
-        record_segment(1, outs, *tables)
+        with profiling.span("segment"):
+            carry, outs = scan_segment(frames[1 : seg_a + 1], pyr, spyr, pts0,
+                                       torch.as_tensor(vg0, device=dev), vp0, t0, p3, intr,
+                                       gen, cfg.tracker, cfg.solver, sdt)
+        with profiling.span("segment.read"):
+            record_segment(1, outs, *tables)
         if n > msv_i:
             # ---- host MSV re-anchor (f64): new structure and gauge ----
             t_m = time.perf_counter()
@@ -369,13 +380,15 @@ class ScanSpeedRunner:
 
             # ---- segment B: frames msv+1..n-1 ----
             p3 = torch.as_tensor(p3_new, dtype=sdt, device=dev)
-            _carry, outs = scan_segment(frames[msv_i + 1 :], pyr, spyr, pts, vg, vg.clone(),
-                                        t_msv, p3, intr, gen, cfg.tracker, cfg.solver, sdt,
-                                        lean=lean)
-            if lean:
-                live_b = record_packed(msv_i + 1, outs, B, res_all, n2_all)
-            else:
-                record_segment(msv_i + 1, outs, *tables)
+            with profiling.span("segment"):
+                _carry, outs = scan_segment(frames[msv_i + 1 :], pyr, spyr, pts, vg,
+                                            vg.clone(), t_msv, p3, intr, gen, cfg.tracker,
+                                            cfg.solver, sdt, lean=lean)
+            with profiling.span("segment.read"):
+                if lean:
+                    live_b = record_packed(msv_i + 1, outs, B, res_all, n2_all)
+                else:
+                    record_segment(msv_i + 1, outs, *tables)
         self._sync()
         wall = time.perf_counter() - t_wall0
 

@@ -47,6 +47,7 @@ from velocity_tpu_torch.pipeline.step_graph import _graph_step
 from velocity_tpu_torch.pipeline.tracker import (
     ThreeStageTracker, _track_fine_p, frame_pyramids, fused_frame_step_pyr, pack_summary)
 from velocity_tpu_torch.solvers.pose import estimate_world_camera_pose
+from velocity_tpu_torch.utils import profiling
 
 F64 = torch.float64
 
@@ -295,52 +296,56 @@ class SpeedEstimator:
         cfg = self.config
         carry = (pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev, t_prev)
         graph = _captured_step(im_dev, carry, p3, intr, cfg.tracker, cfg.solver, sdt)
-        if graph is None:
-            out = fused_frame_step_pyr(
-                pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
-                p3, intr, generator, cfg.tracker, cfg.solver, sdt, t_prev)
-        else:
-            carry_out, rec = graph(im_dev, carry, p3, intr, generator)
-            out = (*carry_out[:2], *rec, None)
-            # the carry the caller passed may be the last replay's outputs,
-            # which this replay overwrote: the rescue reads the previous
-            # frame's state from the input buffers the replay read it from
-            pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev, t_prev = graph.inputs[1]
+        with profiling.span("step"):
+            if graph is None:
+                out = fused_frame_step_pyr(
+                    pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
+                    p3, intr, generator, cfg.tracker, cfg.solver, sdt, t_prev)
+            else:
+                carry_out, rec = graph(im_dev, carry, p3, intr, generator)
+                out = (*carry_out[:2], *rec, None)
+                # the carry the caller passed may be the last replay's outputs,
+                # which this replay overwrote: the rescue reads the previous
+                # frame's state from the input buffers the replay read it from
+                pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev, t_prev = graph.inputs[1]
         pyr_cur, spyr_cur, n2 = out[0], out[1], out[8]
-        if int(n2) > cfg.tracker.min_affine_inliers:
+        with profiling.span("frame.wait"):
+            n2_host = int(n2)
+        if n2_host > cfg.tracker.min_affine_inliers:
             return out
+        with profiling.span("rescue"):
+            matcher = self.tracker.fallback_matcher
+            if matcher is None:
+                from velocity_tpu_torch.ops.match import affine_from_feature_match
 
-        matcher = self.tracker.fallback_matcher
-        if matcher is None:
-            from velocity_tpu_torch.ops.match import affine_from_feature_match
-
-            matcher = partial(affine_from_feature_match, scale=0.5)
-        pnp = pts_dev.cpu().numpy()
-        vnp = vg_dev.cpu().numpy()
-        if cfg.tracker.car_affine:
-            # car-anchored rescue: search only around the tracked plate so
-            # the match affine locks onto the car's motion group
-            lo = pnp[0:4].min(axis=0)
-            hi = pnp[0:4].max(axis=0)
-            m = cfg.tracker.car_margin * float(np.linalg.norm(hi - lo))
-            inbox = ((pnp[:, 0] >= lo[0] - m) & (pnp[:, 0] <= hi[0] + m)
-                     & (pnp[:, 1] >= lo[1] - m) & (pnp[:, 1] <= hi[1] + m))
-            vm = vnp & inbox
-            vnp = vm if vm.sum() >= 4 else vnp
-        T23 = torch.as_tensor(np.asarray(matcher(prev_gray, gray, pnp, vnp)),
-                              dtype=torch.float32, device=pts_dev.device)
-        p_new, vg_new = _track_fine_p(pyr_prev, pyr_cur, pts_dev, vg_dev, T23, cfg.tracker)
-        vp_new = vp_dev & vg_new
-        t0 = (t_prev.to(sdt) if t_prev is not None else
-              torch.tensor([0.0, 0.0, 1.0], dtype=sdt, device=pts_dev.device))
-        pose = estimate_world_camera_pose(
-            intr, p_new.to(sdt), p3, t0=t0,
-            R0=torch.eye(3, dtype=sdt, device=pts_dev.device), find_R=False,
-            mask=vp_new, config=cfg.solver)
-        return (pyr_cur, spyr_cur, p_new, vg_new, vp_new,
-                pose.t, pose.residual_rms, pose.p_proj, n2, T23)
+                matcher = partial(affine_from_feature_match, scale=0.5)
+            pnp = pts_dev.cpu().numpy()
+            vnp = vg_dev.cpu().numpy()
+            if cfg.tracker.car_affine:
+                # car-anchored rescue: search only around the tracked plate so
+                # the match affine locks onto the car's motion group
+                lo = pnp[0:4].min(axis=0)
+                hi = pnp[0:4].max(axis=0)
+                m = cfg.tracker.car_margin * float(np.linalg.norm(hi - lo))
+                inbox = ((pnp[:, 0] >= lo[0] - m) & (pnp[:, 0] <= hi[0] + m)
+                         & (pnp[:, 1] >= lo[1] - m) & (pnp[:, 1] <= hi[1] + m))
+                vm = vnp & inbox
+                vnp = vm if vm.sum() >= 4 else vnp
+            T23 = torch.as_tensor(np.asarray(matcher(prev_gray, gray, pnp, vnp)),
+                                  dtype=torch.float32, device=pts_dev.device)
+            p_new, vg_new = _track_fine_p(pyr_prev, pyr_cur, pts_dev, vg_dev, T23, cfg.tracker)
+            vp_new = vp_dev & vg_new
+            t0 = (t_prev.to(sdt) if t_prev is not None else
+                  torch.tensor([0.0, 0.0, 1.0], dtype=sdt, device=pts_dev.device))
+            pose = estimate_world_camera_pose(
+                intr, p_new.to(sdt), p3, t0=t0,
+                R0=torch.eye(3, dtype=sdt, device=pts_dev.device), find_R=False,
+                mask=vp_new, config=cfg.solver)
+            return (pyr_cur, spyr_cur, p_new, vg_new, vp_new,
+                    pose.t, pose.residual_rms, pose.p_proj, n2, T23)
 
     # ------------------------------------------------------------------- run
+    @profiling.recorded
     def run(self, video, annotation=None, n_frames=None, start_frame=None,
             verbose=True, collect_images=True, lean: bool = False) -> RunResult:
         """Run the pipeline over ``video`` (a path or a reader, see
@@ -385,20 +390,24 @@ class SpeedEstimator:
 
             read = vr.prefetch if hasattr(vr, "prefetch") else vr.frames
             first_gray = last_gray = None
-            for i, fr in enumerate(read(start=start, count=n, step=cfg.read_speed)):
+            frames = enumerate(read(start=start, count=n, step=cfg.read_speed))
+            for i, fr in profiling.spans_over(frames, "frame", first="init"):
                 tic = time.perf_counter()
                 B[i, 12] = fr.time_s
                 B[i, 13] = fr.index
                 gray = fr.gray
                 prev_gray = last_gray
                 last_gray = gray
-                im_dev = torch.as_tensor(gray).to(dev)
+                with profiling.span("frame.upload"):
+                    im_dev = torch.as_tensor(gray).to(dev)
 
                 if i == 0:
                     first_gray = gray if collect_images else None
-                    p, valid, boxa, boxb = self._init_features(im_dev, q)
+                    with profiling.span("init.features"):
+                        p, valid, boxa, boxb = self._init_features(im_dev, q)
                     pyr_prev, spyr_prev = frame_pyramids(im_dev, cfg.tracker)
-                    t_np, p3_np, res0 = self._init_geometry(cam, q, p, valid, scale)
+                    with profiling.span("init.geometry"):
+                        t_np, p3_np, res0 = self._init_geometry(cam, q, p, valid, scale)
                     t = torch.as_tensor(t_np, dtype=sdt, device=dev)
                     p3 = torch.as_tensor(p3_np, dtype=sdt, device=dev)
                     residuals = res0

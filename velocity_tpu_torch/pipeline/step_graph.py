@@ -31,6 +31,7 @@ import torch
 from velocity_tpu_torch.ops import launches
 from velocity_tpu_torch.ops.ransac import DrawnNoise, draw_gumbel, gumbel_noise
 from velocity_tpu_torch.pipeline.tracker import RANSAC_CALLS, fused_frame_step_pyr, pack_summary
+from velocity_tpu_torch.utils import profiling
 from velocity_tpu_torch.utils.loops import fixed_trip_loops
 
 
@@ -74,10 +75,14 @@ class _StepGraph:
     ``pool_bytes`` (the segments of the graph's private memory pool, which
     holds its outputs and every intermediate), ``input_bytes`` (its input
     buffers), ``replays``; and ``graph`` (``keep_graph=True``: its nodes
-    can be counted from ``graph.raw_cuda_graph()``).
+    can be counted from ``graph.raw_cuda_graph()``). Inside a driver's run
+    the capture is the span ``graph.capture`` and adds one to the counter
+    ``graph.captures``.
     """
 
+    @profiling.spanned("graph.capture")
     def __init__(self, im, carry, p3, intr, cfg, solver_cfg, solver_dtype, lean):
+        profiling.count("graph.captures")
         dev = im.device
         t0 = time.perf_counter()
         counts = launches.read()

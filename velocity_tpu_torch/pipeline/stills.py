@@ -28,6 +28,7 @@ from velocity_tpu_torch.pipeline.roi import inside_bbox
 from velocity_tpu_torch.pipeline.speedest import F64, RunResult, SpeedEstimator, resolve_annotation
 from velocity_tpu_torch.pipeline.tracker import frame_pyramids
 from velocity_tpu_torch.solvers.triangulate import nray_intercept_masked_np
+from velocity_tpu_torch.utils import profiling
 
 
 def open_stills(images, platform: str):
@@ -79,6 +80,7 @@ class StillsSpeedEstimator(SpeedEstimator):
         p3[promote] = p3_tri[promote]
         return p3, vp | promote, pending & ~promote, int(promote.sum())
 
+    @profiling.recorded
     def run(self, images, annotation=None, verbose: bool = True, collect_images: bool = True,
             georegister: bool = True) -> RunResult:
         """Run the pipeline over ``images``: a list of still paths or a
@@ -113,20 +115,23 @@ class StillsSpeedEstimator(SpeedEstimator):
             print(report.header())
 
         first_gray = last_gray = None
-        for i, gray, llat in reader.frames():
+        for i, gray, llat in profiling.spans_over(reader.frames(), "frame", first="init"):
             tic = time.perf_counter()
             if llat is not None:
                 B[i, 9:13] = llat
             B[i, 13] = i
             prev_gray = last_gray
             last_gray = gray
-            im_dev = torch.as_tensor(gray).to(dev)
+            with profiling.span("frame.upload"):
+                im_dev = torch.as_tensor(gray).to(dev)
 
             if i == 0:
                 first_gray = gray if collect_images else None
-                p, valid, boxa, boxb = self._init_features(im_dev, q)
+                with profiling.span("init.features"):
+                    p, valid, boxa, boxb = self._init_features(im_dev, q)
                 pyr_prev, spyr_prev = frame_pyramids(im_dev, cfg.tracker)
-                t_np, p3_np, res0 = self._init_geometry(cam, q, p, valid, scale)
+                with profiling.span("init.geometry"):
+                    t_np, p3_np, res0 = self._init_geometry(cam, q, p, valid, scale)
                 t = torch.as_tensor(t_np, dtype=sdt, device=dev)
                 p3 = torch.as_tensor(p3_np, dtype=sdt, device=dev)
                 residuals = res0
@@ -206,9 +211,10 @@ class StillsSpeedEstimator(SpeedEstimator):
             # provisional, and static-background corners seeded at car depth
             # would drag the solve toward zero motion.
             if cfg.msv_frame <= i < n - 1:
-                p_r, vg_r, p3_r, n_new = self._replenish(
-                    im_dev, q, pnp, vg, p3.cpu().numpy().astype(np.float64),
-                    t.cpu().numpy().astype(np.float64), intr_np)
+                with profiling.span("replenish"):
+                    p_r, vg_r, p3_r, n_new = self._replenish(
+                        im_dev, q, pnp, vg, p3.cpu().numpy().astype(np.float64),
+                        t.cpu().numpy().astype(np.float64), intr_np)
                 if n_new:
                     pending |= vg_r & ~vg
                     vg = vg_r
@@ -219,10 +225,11 @@ class StillsSpeedEstimator(SpeedEstimator):
                     valid_hist[i] = vg
             pending &= vg
             if i > cfg.msv_frame and pending.any():
-                p3_np2, vp, pending, n_prom = self._promote_pending(
-                    intr_np, track_px, B, valid_hist, pending,
-                    p3.cpu().numpy().astype(np.float64), t.cpu().numpy().astype(np.float64),
-                    vp, i)
+                with profiling.span("promote"):
+                    p3_np2, vp, pending, n_prom = self._promote_pending(
+                        intr_np, track_px, B, valid_hist, pending,
+                        p3.cpu().numpy().astype(np.float64), t.cpu().numpy().astype(np.float64),
+                        vp, i)
                 if n_prom:
                     p3 = torch.as_tensor(p3_np2, dtype=sdt, device=dev)
                     vp_dev = torch.as_tensor(vp, device=dev)
@@ -231,7 +238,8 @@ class StillsSpeedEstimator(SpeedEstimator):
             torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t_wall0
         if georegister and np.any(B[:, 9] != 0):
-            georegister_track(B, yaw_deg=reader.yaw_deg(0))
+            with profiling.span("georegister"):
+                georegister_track(B, yaw_deg=reader.yaw_deg(0))
         if verbose:
             print(report.summary(S))
             print(f"Processed {n:g} images in {wall:.2f}s ({n / wall:.2f}fps)\n")

@@ -3,6 +3,18 @@
 Torch twin of ``velocity_tpu/utils/profiling.py``: structured per-stage
 wall-clock timers, and a ``torch.profiler`` trace context for device
 timelines (a Chrome trace, viewable in Perfetto or chrome://tracing).
+
+The drivers' runs record their phases with ``StageTimer``: each
+``run()`` of ``ScanSpeedRunner``, ``SpeedEstimator`` and
+``StillsSpeedEstimator`` (``recorded``) opens one timer for the call on its
+thread, and code below it opens nested spans with ``span(name)`` and adds
+to counters with ``count(name, k)``, both of which do nothing outside a
+run. A span's two stamps are ``time.time_ns()``, the clock of the
+profiler's raw events, so the spans lie on the axis of a device trace; while
+a profiler records, each span is also a ``record_function`` of its name and
+shows in ``trace(log_dir)``'s Chrome trace. A finished run's record (its
+number, spans and counters) goes into the result's ``timings["spans"]`` and
+``timings["counts"]`` and into ``recent_runs()``.
 Beside them, what every card number is read against: the H100's published
 peaks, the least time they allow for a given work (``bound_ms``; a window
 gather's and a K1 block's), a kernel timer on CUDA events (``cuda_ms``),
@@ -13,10 +25,13 @@ and the card's name and power limit as ``nvidia-smi`` reports them
 from __future__ import annotations
 
 import contextlib
+import functools
+import itertools
 import statistics
 import subprocess
+import threading
 import time
-from collections import defaultdict
+from collections import defaultdict, deque
 from pathlib import Path
 
 import torch
@@ -109,28 +124,47 @@ def card() -> dict:
 
 
 class StageTimer:
-    """Accumulating wall-clock stage timer.
+    """Accumulating wall-clock stage timer and span recorder.
 
     with timer.stage("track"): ...
     print(timer.report())
+
+    Each stage is also kept as a span, [name, index of the parent span
+    (None at the top), start ns, end ns], nested by a stack, both stamps
+    ``time.time_ns()``; ``count(name, k)`` adds to a counter. While a
+    profiler records, a stage is also a ``record_function`` of its name.
     """
 
     def __init__(self):
         self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
+        self.counts = defaultdict(int)  # calls of each stage
+        self.counters = defaultdict(int)
+        self.spans = []
+        self._open = []  # indices of the open spans, innermost last
 
     @contextlib.contextmanager
     def stage(self, name: str, sync: bool = False):
-        t0 = time.perf_counter()
+        index = len(self.spans)
+        span = [name, self._open[-1] if self._open else None, time.time_ns(), None]
+        self._open.append(index)
+        self.spans.append(span)
         try:
-            yield
+            if torch._C._autograd._profiler_enabled():
+                with torch.profiler.record_function(name):
+                    yield
+            else:
+                yield
         finally:
             if sync and torch.cuda.is_initialized():
                 # ensure device work attributed to this stage has finished
                 torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            self.totals[name] += dt
+            span[3] = time.time_ns()
+            self._open.remove(index)
+            self.totals[name] += (span[3] - span[2]) / 1e9
             self.counts[name] += 1
+
+    def count(self, name: str, k: int = 1) -> None:
+        self.counters[name] += k
 
     def report(self) -> str:
         lines = [f"{'stage':<24}{'total_s':>10}{'calls':>8}{'ms/call':>10}"]
@@ -147,11 +181,92 @@ class StageTimer:
         }
 
 
+# The timer of the run open on each thread; the records of the last
+# RECENT_RUNS runs of the process, oldest first, read at a benchmark's end
+RECENT_RUNS = 8
+_local = threading.local()
+_recent: deque = deque(maxlen=RECENT_RUNS)
+_run_numbers = itertools.count()
+
+
+def span(name: str):
+    """A span of ``name`` in the run open on this thread (a no-op outside a
+    run)."""
+    timer = getattr(_local, "timer", None)
+    return timer.stage(name) if timer is not None else contextlib.nullcontext()
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add ``k`` to the counter ``name`` of the run open on this thread (a
+    no-op outside a run)."""
+    timer = getattr(_local, "timer", None)
+    if timer is not None:
+        timer.count(name, k)
+
+
+def spanned(name: str):
+    """Decorate a function: each call inside a run is a span of ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def spans_over(items, name: str, first: str | None = None):
+    """Yield ``items``, each inside a span of ``name`` (the first one inside
+    a span of ``first`` where given) that closes before the next is taken:
+    a loop's bodies as spans, its iterator's work between them."""
+    for k, item in enumerate(items):
+        with span(first if k == 0 and first is not None else name):
+            yield item
+
+
+def recent_runs() -> list:
+    """The records of the last ``RECENT_RUNS`` runs, oldest first:
+    {"run": the process's run number, "spans": [(name, parent, start ns,
+    end ns)], "counts": {name: total}}."""
+    return list(_recent)
+
+
+def recorded(run):
+    """Decorate a driver's ``run`` method: the call is one ``run`` span of a
+    timer of its own, and its record goes into the returned result's
+    ``timings["spans"]`` and ``timings["counts"]`` and into
+    ``recent_runs()``. A run called inside another run (the scan runner
+    handing a clip to the per-frame driver) records into the outer run."""
+
+    @functools.wraps(run)
+    def call(*args, **kwargs):
+        if getattr(_local, "timer", None) is not None:
+            return run(*args, **kwargs)
+        timer = _local.timer = StageTimer()
+        try:
+            with timer.stage("run"):
+                res = run(*args, **kwargs)
+        finally:
+            _local.timer = None
+            record = {"run": next(_run_numbers), "spans": [tuple(s) for s in timer.spans],
+                      "counts": dict(timer.counters)}
+            _recent.append(record)
+        res.timings["spans"] = record["spans"]
+        res.timings["counts"] = record["counts"]
+        return res
+
+    return call
+
+
 @contextlib.contextmanager
 def trace(log_dir: str | Path | None):
     """Profiler trace context: host ops, and device kernels where CUDA is
     initialised, written to ``log_dir/trace.json`` on exit (no-op when
-    ``log_dir`` is None)."""
+    ``log_dir`` is None). The spans of a run inside it show as
+    ``record_function`` ranges of their names."""
     if not log_dir:
         yield
         return
