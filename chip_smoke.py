@@ -10,7 +10,8 @@ main paths (K1 also at its edge cases and, with points up to and past the
 image's edges, at every pyramid level of a 4032x3024 still; K2 and K3 with
 corners past every side, K2 also on a still, K2 and K3 also on a stack of
 three frames, one launch for all, beside three 2-D launches; each beside
-its launch floor, the same call at size 1), then
+its launch floor, the same call at size 1; K4, ``corner_subpix``'s loop,
+on the 1,020 corners frame-0 init refines on the clip's first frame), then
 drives the paths below on a 1920x1080, 20-frame synthetic clip with the default
 widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 
@@ -123,7 +124,7 @@ import numpy as np
 import torch
 
 from bench_ba_torch import ba_scene as _ba_scene
-from velocity_tpu_torch.utils.profiling import card_line, cuda_ms, k1_bound_ms
+from velocity_tpu_torch.utils.profiling import bound_ms, card_line, cuda_ms, k1_bound_ms
 from velocity_tpu_torch.utils.profiling import gather_bound_ms as _gather_bound
 from velocity_tpu_torch.utils.profiling import window_index as _window_index
 
@@ -191,6 +192,10 @@ SLAB_LANES, SLAB_BATCHED_SIZES = 3, (24, 72)
 # the largest single run's (one batched step per frame for all lanes)
 BATCH_LAUNCH_RATIO = 1.1
 K1_CONFIGS = ((15, 24, 8, False), (51, 64, 10, True), (51, 64, 8, False))
+# K4 against its plain version: every valid corner within this many px (the
+# five sums run in another order; a stop that flips moves a point by under
+# eps), the per-point iteration counts equal on at least this share
+K4_ATOL_PX, K4_SAME_ITERS = 2e-3, 0.99
 K1_RTOL, K1_ATOL = 1e-5, 1e-4  # summation order and FMA contraction differ
 # Functions (module of velocity_tpu_torch.ops, name) whose device time each
 # path's profiled run reports: the eager PyTorch stencils that stand where
@@ -427,6 +432,72 @@ def phase_k3(dev):
                                    if label in K3_BATCHED_CASES])
 
 
+def _k4_bound_ms(N: int, Q: int, half_win: int, point_iters: int):
+    """Bound of one K4 call: N slabs (Q, Q) read, seeds and clamped corners
+    read, points and counts written, once each; per point and iteration
+    run (``point_iters`` in all) the resample (2 x-pass rows and the y-pass,
+    9 operations a patch element), the differences (4 an element of the
+    window) and the five weighted sums (20 an element), and the solve."""
+    W = 2 * half_win + 1
+    G = W + 2
+    per_iter = 9 * G * G + 24 * W * W + 20
+    return bound_ms(4 * N * Q * Q + 28 * N, point_iters * per_iter)
+
+
+def phase_k4(dev, clip):
+    """K4 (``corner_subpix``'s loop, ``csrc/subpix.cu``) against its plain
+    version on the card at the main-path shape: the 1,020 corners frame-0
+    init refines on the clip's first frame, on K2's slabs. Every valid
+    corner within K4_ATOL_PX, the iteration counts equal on K4_SAME_ITERS
+    of the points, one K2 and one K4 launch a call; then K4's time on the
+    slabs, the whole call's (K2, K4 and their small ops), the plain loop's
+    (its ~350 kernels and one host read an iteration) and the bound."""
+    from velocity_tpu_torch.config import PipelineConfig
+    from velocity_tpu_torch.ops import harris, launches
+    from velocity_tpu_torch.pipeline.roi import bounding_rect
+
+    tc = PipelineConfig().tracker
+    gray = torch.as_tensor(clip.reader.grays[0]).to(dev)
+    x0, x1, y0, y1 = (int(v) for v in bounding_rect(
+        clip.annotation.q * PipelineConfig().native_scale, tuple(gray.shape),
+        border=tc.roi_border))
+    corners = harris.good_features(gray[y0:y1, x0:x1], max_corners=tc.max_features - 4,
+                                   quality_level=tc.harris_quality, block=tc.harris_block,
+                                   k=tc.harris_k)
+    seeds = corners.points + torch.tensor([x0, y0], dtype=torch.float32, device=dev)
+    img = gray.float()
+    hw, its, eps = tc.subpix_window, tc.subpix_iters, tc.subpix_eps
+    before = launches.read()
+    got, iters = harris._corner_subpix(img, seeds, hw, its, eps)
+    torch.cuda.synchronize()
+    counted = {k: n for k, (n, _) in launches.since(before).items() if n}
+    if counted != {"corner_subpix": 1, "extract_slabs": 1}:
+        raise AssertionError(f"K4: a call launched {counted}, not one K2 and one K4")
+    slabs, cl = harris._subpix_slabs(img, seeds, hw)
+    Q = slabs.shape[1]
+    want, want_iters = harris.subpix_loop_ref(slabs, cl, seeds, hw, its, eps)
+    valid = corners.valid
+    err = float((got - want).abs().amax(dim=1)[valid].max())
+    same = float((iters == want_iters).float().mean())
+    if not (err <= K4_ATOL_PX and same >= K4_SAME_ITERS):
+        raise AssertionError(f"K4 against the plain loop: max err {err} px (limit "
+                             f"{K4_ATOL_PX}), iteration counts equal on {same:.2%}")
+    N = seeds.shape[0]
+    ms = cuda_ms(lambda: harris._subpix_k4(slabs, cl, seeds, hw, its, eps))
+    call_ms = cuda_ms(lambda: harris._corner_subpix(img, seeds, hw, its, eps))
+    plain_ms = cuda_ms(lambda: harris.subpix_loop_ref(slabs, cl, seeds, hw, its, eps),
+                       calls=2, rounds=3)
+    b_ms, b_by = _k4_bound_ms(N, Q, hw, int(iters.sum()))
+    print(f"K4 (N={N}, {int(valid.sum())} valid, Q {Q}, half_win {hw}, max_iters {its}): "
+          f"max err {err:.2e} px over the valid corners, iteration counts equal on "
+          f"{same:.2%}, trip count {int(iters.max())} (plain {int(want_iters.max())}), "
+          f"{int(iters.sum())} point-iterations; kernel {ms:.4f} ms, K2 + K4 call "
+          f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"{b_ms / ms:.0%} of the bound's rate")
+    return [dict(label="K4", size=Q, N=N, max_abs_err=err, ms=ms, call_ms=call_ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)]
+
+
 def _k1_case(dev, win, P, n_taps, cubic, it0, seed=0, N=N_POINTS, size=(1920, 1080),
              edges=False):
     """Random K1 inputs at a main-path shape, points-major, on the card, for
@@ -594,7 +665,7 @@ def _read_counts():
 
 
 def _launches_since(before):
-    """[K1, K2, K3 launches] since ``launches.read()`` gave ``before``."""
+    """[K1, K2, K3, K4 launches] since ``launches.read()`` gave ``before``."""
     from velocity_tpu_torch.ops import launches
 
     return [n for n, _ in launches.since(before).values()]
@@ -984,7 +1055,7 @@ def phase_graph(dev, clip):
     rows = []
     for key, gr in seen.items():
         shapes = key[1]
-        k1, k2, k3 = (n for n, _ in gr.launches.values())
+        k1, k2, k3 = (gr.launches[k][0] for k in ("lk_block", "extract_slabs", "extract_patches"))
         nodes = _node_count(gr.graph.raw_cuda_graph())
         rows.append(dict(frame=list(shapes[0][0]), points=gr.n, backend=key[2].lk_backend,
                          shard_features=key[2].shard_features,
@@ -2072,9 +2143,11 @@ def main() -> int:
     clip = render_clip(n_frames=N_FRAMES, width=1920, height=1080, seed=0)
     print(f"clip: {N_FRAMES} x 1080x1920 rendered in {time.perf_counter() - t0:.1f} s, "
           f"true speed {clip.speed_kmh:.3f} km/h")
+    k4_rows = phase_k4(dev, clip)
     rows = {"lk_block": k1_rows, "extract_slabs": k2_rows, "extract_patches": k3_rows}
-    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs"), rows)
-    fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs"), rows)
+    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs", "corner_subpix"), rows)
+    fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs", "corner_subpix"),
+                       rows)
     phase_graph(dev, clip)
     drivers = phase_driver(dev, clip)
     phase_ba(dev, clip)
@@ -2122,6 +2195,11 @@ def main() -> int:
          "batched": [{k: r[k] for k in ("lanes", "size", "N", "ms", "lanes_2d_ms", "plain_ms",
                                         "bound_ms", "bound_by", "library_ms")}
                      for r in k3_rows if "lanes" in r]},
+        {"name": "corner_subpix", "route": "cuda", "source": "velocity_tpu_torch/csrc/subpix.cu",
+         "replaces": None, "launches": bench["corner_subpix"],
+         "launches_by_path": by_path("corner_subpix"), "max_abs_err": k4_rows[0]["max_abs_err"],
+         **{k: k4_rows[0][k] for k in keys}, "call_ms": k4_rows[0]["call_ms"],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,7 +5,14 @@ seed, drawn in the same order; TestWarp's image excepted, since the JAX file
 draws ``sigma_rejection``'s input before it) and tolerances. Where the JAX test checks
 ``jit``, the mirror checks that two calls under equally seeded
 ``torch.Generator``s give the same bits. (``sigma_rejection``'s mirror is in
-``tests/test_torch_solvers_init.py``.)"""
+``tests/test_torch_solvers_init.py``.)
+
+``TestSubpixPlainTwin`` (its own seed, after the mirrors): on a CPU tensor
+``corner_subpix`` is K4's plain twin, the eager loop as it was before K4,
+bit for bit and with no kernel launched; its per-point iteration counts
+give that loop's trip count, which the drivers' frame-0 init (and each
+re-seeding) adds to the run's counter ``subpix.iterations``. K4 itself is
+held to the twin on the card in ``test_torch_kernels.py``."""
 
 import cv2
 import numpy as np
@@ -22,8 +29,8 @@ RNG = np.random.default_rng(11)
 T = torch.as_tensor
 
 
-def _checkerboardish(h=240, w=320):
-    img = RNG.uniform(0, 255, (h // 8, w // 8)).astype(np.float32)
+def _checkerboardish(h=240, w=320, rng=RNG):
+    img = rng.uniform(0, 255, (h // 8, w // 8)).astype(np.float32)
     img = cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST)
     img = cv2.GaussianBlur(img, (3, 3), 0)
     return img.astype(np.uint8)
@@ -145,3 +152,134 @@ class TestWarp:
 
 if __name__ == "__main__":
     pytest.main([__file__, "-q"])
+
+
+def _corner_subpix_before(img, points, half_win=5, max_iters=100, eps=0.001):
+    """``corner_subpix`` as it was before K4 (the eager loop with its
+    early exit), returning (refined points, the loop's trip count)."""
+    from velocity_tpu_torch.ops.lk_lanes import _extract_slabs, _sample_taps
+
+    dtype = points.dtype if points.is_floating_point() else torch.float32
+    pts = points.to(dtype)
+    x = img.to(dtype)
+    wsize = 2 * half_win + 1
+    gsize = wsize + 2
+    drift_max = half_win + 1
+    Q = gsize + 2 * (drift_max + 1)
+    n_taps = Q - gsize + 1
+    corner = torch.floor(pts).to(torch.int32) - gsize // 2 - drift_max - 1
+    slabs, cl = _extract_slabs(x, corner, Q)
+    cl = cl.to(dtype)
+    off = torch.arange(wsize, dtype=dtype) - half_win
+    m1d = torch.exp(-(off * off) * (1.0 / (half_win * half_win)))
+    mask2d = (m1d[:, None] * m1d[None, :])[None]
+    offx, offy = off[None, None, :], off[None, :, None]
+    gh = (gsize - 1) * 0.5
+    tiny16 = torch.finfo(dtype).tiny * 16
+    q = pts
+    done = torch.zeros(pts.shape[0], dtype=torch.bool)
+    trips = 0
+    for _ in range(max_iters):
+        if bool(torch.all(done)):
+            break
+        trips += 1
+        ox = q[:, 0] - gh - cl[:, 0]
+        oy = q[:, 1] - gh - cl[:, 1]
+        patch = _sample_taps(slabs, oy, ox, gsize, n_taps)
+        gx = (patch[:, 1:-1, 2:] - patch[:, 1:-1, :-2]) * 0.5
+        gy = (patch[:, 2:, 1:-1] - patch[:, :-2, 1:-1]) * 0.5
+        gxx = torch.sum(gx * gx * mask2d, dim=(1, 2))
+        gxy = torch.sum(gx * gy * mask2d, dim=(1, 2))
+        gyy = torch.sum(gy * gy * mask2d, dim=(1, 2))
+        bx = torch.sum((gx * gx * offx + gx * gy * offy) * mask2d, dim=(1, 2))
+        by = torch.sum((gx * gy * offx + gy * gy * offy) * mask2d, dim=(1, 2))
+        det = gxx * gyy - gxy * gxy
+        safe = torch.abs(det) > tiny16
+        inv = torch.where(safe, 1.0 / det, torch.zeros_like(det))
+        dx = (gyy * bx - gxy * by) * inv
+        dy = (gxx * by - gxy * bx) * inv
+        step = torch.stack([dx, dy], dim=1)
+        q_new = torch.where((done | ~safe)[:, None], q, q + step)
+        done = done | (torch.sum(step * step, dim=1) < eps * eps) | ~safe
+        done = done | (torch.abs(q_new - pts) > drift_max).any(dim=1)
+        q = q_new
+    return q, trips
+
+
+def _subpix_seeds(rng):
+    """An image and 200 seeds from ``good_features`` on it, padded ones
+    included (as the drivers refine them)."""
+    img = T(_checkerboardish(rng=rng).astype(np.float32))
+    return img, good_features(img, max_corners=200).points
+
+
+class TestSubpixPlainTwin:
+    @pytest.mark.parametrize("max_iters", [3, 100])
+    def test_cpu_corner_subpix_is_the_loop_before_k4(self, max_iters):
+        """No kernel launches (K4's counter stays 0), the points are the
+        old loop's bit for bit, and the most iterations a point ran is the
+        old loop's trip count (cut at ``max_iters`` or stopped early)."""
+        from velocity_tpu_torch.ops import harris, launches
+
+        img, seeds = _subpix_seeds(np.random.default_rng(17))
+        want, trips = _corner_subpix_before(img, seeds, max_iters=max_iters)
+        saved = launches.read()
+        try:
+            launches.set_counts()
+            got = corner_subpix(img, seeds, half_win=5, max_iters=max_iters)
+            refined, iters = harris._corner_subpix(img, seeds, 5, max_iters, 0.001)
+            assert launches.read()["corner_subpix"] == (0, {})
+        finally:
+            launches.set_counts(saved)
+        assert torch.equal(got, want) and torch.equal(refined, want)
+        assert iters.dtype == torch.int32 and iters.shape == (seeds.shape[0],)
+        assert int(iters.max()) == trips
+        assert 0 < trips <= max_iters and (trips == 3 if max_iters == 3 else trips < 100)
+        assert int(iters.min()) >= 1
+
+    def test_drivers_count_the_trip_count_of_each_refinement(self, monkeypatch):
+        """A scan run on the small clip adds its frame-0 refinement's trip
+        count to ``subpix.iterations``; a stills burst whose lanes die
+        adds the frame-0 one and its re-seeding's."""
+        import dataclasses
+
+        from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
+        from velocity_tpu_torch.pipeline import speedest
+        from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
+        from velocity_tpu_torch.pipeline.stills import StillsSpeedEstimator
+        from velocity_tpu_torch.testing.synthetic_clip import SyntheticStillsReader, render_clip
+
+        trips = []
+        real = speedest._corner_subpix
+
+        def spy(*args, **kwargs):
+            out = real(*args, **kwargs)
+            trips.append(int(out[1].max()))
+            return out
+
+        monkeypatch.setattr(speedest, "_corner_subpix", spy)
+        msv, n = 3, 5
+
+        def cfg(**tracker):
+            return PipelineConfig(solver=SolverConfig(dtype="float32"), msv_frame=msv,
+                                  anchor="ba", tracker=TrackerConfig(
+                                      max_features=64, ransac_trials=32, **tracker))
+
+        clip = render_clip(n_frames=n, width=480, height=270, seed=0)
+        res = ScanSpeedRunner(cfg(), device="cpu").run(
+            clip.reader, annotation=clip.annotation, n_frames=n, verbose=False, lean=True)
+        assert len(trips) == 1 and trips[0] > 0
+        assert res.timings["counts"]["subpix.iterations"] == trips[0]
+
+        # few strong corners, so lanes die and are re-seeded in the MSV frame
+        trips.clear()
+        burst = render_clip(n_frames=n, width=480, height=270, seed=0, speed_kmh=40.0,
+                            depth0_m=4.0, stride=3, filename="synthetic.JPG",
+                            native_scale=1.0)
+        full = burst.stills()
+        reader = SyntheticStillsReader(full.grays, full.info, full.fps)
+        res = StillsSpeedEstimator(
+            dataclasses.replace(cfg(car_affine=True, harris_quality=0.6), native_scale=1.0),
+            device="cpu").run(reader, annotation=burst.annotation, verbose=False)
+        assert len(trips) == 2 and min(trips) > 0
+        assert res.timings["counts"]["subpix.iterations"] == sum(trips)

@@ -1,10 +1,12 @@
 """Plain versions of the port's kernels K1 (LK block) and K2 (slab
 extraction, which clamps its corners) against the JAX package, the sampling
 K1's CUDA kernel does (only the taps that weigh), and the input checks of
-K2's and K3's wrappers, on the CPU; the CUDA kernels K1, K2 and K3 (patch
-extraction) against their plain versions on the card (``cuda`` marker), K2
-and K3 also at their edges. K3's CPU parity tests are in
-``test_torch_lk_fast.py``.
+K2's and K3's wrappers, on the CPU; the CUDA kernels K1, K2, K3 (patch
+extraction) and K4 (``corner_subpix``'s refinement loop) against their
+plain versions on the card (``cuda`` marker), K2 and K3 also at their
+edges, K4 also on the edge cases its CPU test shows the plain loop meets.
+K3's CPU parity tests are in ``test_torch_lk_fast.py``; K4's plain twin is
+held to the loop before K4 in ``test_torch_features.py``.
 
 The JAX package is imported inside the CPU tests only, so that the card
 tests run where JAX is not installed:
@@ -572,3 +574,116 @@ def test_k3_batched_matches_plain_on_card(cuda_device, size, H, W):
         one, one_cl = k3.extract_patches(imgs[v], corners[v * n:(v + 1) * n].contiguous(), size)
         assert torch.equal(got[v * n:(v + 1) * n], one)
         assert torch.equal(got_cl[v * n:(v + 1) * n], one_cl)
+
+
+# ------------------------------------------------------------------------ K4
+
+
+def _subpix_edge_case(h=240, w=320, seed=5):
+    """An image whose left half is a smooth random texture and right half
+    flat grey, and seeds for ``corner_subpix``: 64 random ones on the
+    texture (most drift past half_win + 1 from their seed), 5 at the
+    image's border (clamped slabs) and 2 on the flat half (a singular
+    system). Returns (image, seeds, the index of the first flat seed)."""
+    rng = np.random.default_rng(seed)
+    img = torch.as_tensor(rng.uniform(0, 255, (h // 6, w // 6)).astype(np.float32))
+    img = torch.nn.functional.interpolate(img[None, None], size=(h, w), mode="bilinear",
+                                          align_corners=False)[0, 0].round()
+    img[:, w // 2:] = 128.0
+    tex = np.stack([rng.uniform(8, w // 2 - 8, 64), rng.uniform(8, h - 8, 64)], 1)
+    border = [[0.0, 0.0], [1.5, h / 2], [w - 1.0, h - 1.0], [w / 4, h - 0.5], [w / 4, 2.2]]
+    flat = [[w * 0.75, h / 2], [w - 20.3, 30.7]]
+    seeds = np.concatenate([tex, border, flat]).astype(np.float32)
+    return img.contiguous(), torch.as_tensor(seeds), len(seeds) - len(flat)
+
+
+def test_plain_subpix_meets_the_edge_cases():
+    """On the edge case the plain loop clamps slabs at the border, stops
+    at once and leaves the point where it was on a flat window, and lets
+    points drift past half_win + 1 and stop there."""
+    from velocity_tpu_torch.ops.harris import _subpix_slabs, subpix_loop_ref
+
+    img, seeds, flat = _subpix_edge_case()
+    slabs, cl = _subpix_slabs(img, seeds, 5)
+    q, iters = subpix_loop_ref(slabs, cl, seeds, 5, 100, 0.001)
+    # the slab's corner lies 13 px up and left of the seed's pixel, unless clamped
+    assert (cl != torch.floor(seeds).to(torch.int32) - 13).any(dim=1)[64:flat].all()
+    assert (iters[flat:] == 1).all() and torch.equal(q[flat:], seeds[flat:])
+    drift = (q - seeds).abs().amax(dim=1)
+    assert int((drift[:64] > 6).sum()) >= 16
+    assert (iters[:64] > 1).all() and (iters < 100).all()
+
+
+def _scene_seeds(config: str, dev):
+    """A frame (or still) of a benchmark configuration's scene (bank 0,
+    slot 0) on ``dev``, and the seeds frame-0 init refines on it:
+    ``good_features``' max_features - 4 corners (1,020 at the
+    configurations' widths) in the plate's ROI, in image coordinates, and
+    their validity."""
+    import json
+    from pathlib import Path
+
+    from benchmark import scene
+    from benchmark.drivers._port import pipeline_config
+    from velocity_tpu_torch.ops.harris import good_features
+    from velocity_tpu_torch.pipeline.roi import bounding_rect
+
+    spec = json.loads((Path(__file__).resolve().parent.parent / "benchmark" / "configs"
+                       / f"{config}.json").read_text())
+    tc = pipeline_config(spec).tracker
+    clip = scene.render(spec["scene"], 2, scene.clip_seed(scene.BANK, 0),
+                        scene.clip_seed(scene.BANK, 1), dev)
+    gray = torch.as_tensor(clip.grays[0], device=dev)
+    x0, x1, y0, y1 = (int(v) for v in bounding_rect(clip.truth.corners_px, tuple(gray.shape),
+                                                    border=tc.roi_border))
+    corners = good_features(gray[y0:y1, x0:x1], max_corners=tc.max_features - 4,
+                            quality_level=tc.harris_quality, block=tc.harris_block,
+                            k=tc.harris_k)
+    seeds = corners.points + torch.tensor([x0, y0], dtype=torch.float32, device=dev)
+    return gray.to(torch.float32), seeds, corners.valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["phone1080p30-lanes-ba", "stills12mp-lanes-ba", "edges"])
+def test_k4_matches_plain_on_card(cuda_device, case):
+    """``corner_subpix`` on a card (one K2 and one K4 launch, no host read)
+    against the plain loop on K2's slabs on the card: 1,020 corners of a
+    benchmark frame at 1080p and of a 12 MP still, and the edge case.
+    Every valid corner within 2e-3 px (the five sums run in another order,
+    and a stop that flips moves a point by under eps), the iteration counts
+    equal on at least 99% of the points; on the edge case the flat seeds
+    stop at once where they are, and the points that drift past half_win +
+    1 in the plain loop drift past it in K4."""
+    from velocity_tpu_torch.ops import harris, launches
+
+    if case == "edges":
+        img, seeds, flat = _subpix_edge_case()
+        img, seeds = img.to(cuda_device), seeds.to(cuda_device)
+        valid = torch.ones(seeds.shape[0], dtype=torch.bool, device=cuda_device)
+    else:
+        img, seeds, valid = _scene_seeds(case, cuda_device)
+        assert seeds.shape[0] == 1020
+    saved = launches.read()
+    try:
+        launches.set_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, iters = harris._corner_subpix(img, seeds, 5, 100, 0.001)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counts = launches.read()
+    finally:
+        launches.set_counts(saved)
+    assert counts["corner_subpix"] == (1, {27: 1})
+    assert counts["extract_slabs"] == (1, {27: 1})
+    slabs, cl = harris._subpix_slabs(img, seeds, 5)
+    want, want_iters = harris.subpix_loop_ref(slabs, cl, seeds, 5, 100, 0.001)
+    err = (got - want).abs().amax(dim=1)
+    assert float(err[valid].max()) <= 2e-3, float(err[valid].max())
+    assert float((iters == want_iters).float().mean()) >= 0.99
+    if case == "edges":
+        assert (iters[flat:] == 1).all() and torch.equal(got[flat:], seeds[flat:])
+        drift = (want - seeds).abs().amax(dim=1) > 6
+        assert bool(((got - seeds).abs().amax(dim=1) > 6)[drift].all())

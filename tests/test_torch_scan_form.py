@@ -303,14 +303,14 @@ def test_loop_form_is_eager_outside_a_capture():
 
 
 def test_launch_counts_move_as_one():
-    """``ops/launches.py`` reads, sets, adds and differences the three
+    """``ops/launches.py`` reads, sets, adds and differences the four
     wrappers' counters as the graph's capture and replays do."""
     saved = launches.read()
     try:
         launches.set_counts()
         assert launches.read() == {name: (0, {}) for name in launches.counters()}
         add = {"lk_block": (3, {(15, False): 3}), "extract_slabs": (2, {24: 1, 72: 1}),
-               "extract_patches": (0, {})}
+               "extract_patches": (0, {}), "corner_subpix": (1, {27: 1})}
         before = launches.read()
         launches.add(add)
         launches.add(add)

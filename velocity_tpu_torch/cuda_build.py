@@ -37,6 +37,7 @@ SIGNATURES = {
     "vt_extract_patches_batched": (_I, [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P]),
     "vt_lk_block": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]),
+    "vt_corner_subpix": (_I, [_P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P]),
 }
 
 _lib = None

@@ -8,7 +8,9 @@ Torch twin of ``velocity_tpu/ops/harris.py``:
   relative to the maximum, descending-response order.
 - ``corner_subpix`` <-> cv2.cornerSubPix: the iterative gradient-weighted
   centroid solve with the Gaussian window, on one slab per point extracted
-  by K2 and resampled by the tap stencil each iteration.
+  by K2 and resampled by the tap stencil each iteration; on a card the
+  whole loop is K4 (``csrc/subpix.cu``), whose plain twin is
+  ``subpix_loop_ref``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from velocity_tpu_torch import cuda_build
 from velocity_tpu_torch.ops.lk_lanes import _extract_slabs, _sample_taps
 
 
@@ -103,26 +106,25 @@ def good_features(img, max_corners: int = 1024, quality_level: float = 0.01,
                    valid=torch.isfinite(vals))
 
 
-def corner_subpix(img, points, half_win: int = 5, max_iters: int = 100,
-                  eps: float = 0.001):
-    """Subpixel corner refinement (cv2.cornerSubPix, zeroZone=(-1,-1)).
+def subpix_loop_ref(slabs, cl, pts, half_win: int, max_iters: int, eps: float):
+    """Plain version of K4: the refinement loop on slabs that K2 extracted.
 
-    Corners drift at most ``half_win + 1`` px from their seed (cv2's bail
-    out), so one (Q, Q) slab per point is extracted up front (K2) and every
-    iteration resamples it. The loop stops once every point is done; points
-    that are done no longer move, so stopping early changes nothing.
+    ``slabs`` (N, Q, Q) at the clamped corners ``cl`` (N, 2) xy, seeds
+    ``pts`` (N, 2) xy. Every iteration resamples each point's patch from its
+    slab by the tap stencil, solves cv2's 2x2 system and moves the points
+    that are not done; a point is done once its step is under ``eps``, its
+    system is singular or it drifts past ``half_win + 1`` from its seed.
+    The loop stops once every point is done; points that are done no longer
+    move, so stopping early changes nothing. Returns (refined (N, 2), the
+    iterations each point ran (N,) int32); their largest is the loop's trip
+    count.
     """
-    dtype = points.dtype if points.is_floating_point() else torch.float32
-    pts = points.to(dtype)
-    x = img.to(dtype)
+    dtype = pts.dtype
     wsize = 2 * half_win + 1
     gsize = wsize + 2  # +1 ring for central differences
     drift_max = half_win + 1
-    Q = gsize + 2 * (drift_max + 1)
+    Q = slabs.shape[1]
     n_taps = Q - gsize + 1
-
-    corner = torch.floor(pts).to(torch.int32) - gsize // 2 - drift_max - 1
-    slabs, cl = _extract_slabs(x, corner, Q)  # (N, Q, Q)
     cl = cl.to(dtype)
 
     dev = pts.device
@@ -137,9 +139,11 @@ def corner_subpix(img, points, half_win: int = 5, max_iters: int = 100,
 
     q = pts
     done = torch.zeros(pts.shape[0], dtype=torch.bool, device=dev)
+    iters = torch.zeros(pts.shape[0], dtype=torch.int32, device=dev)
     for _ in range(max_iters):
         if bool(torch.all(done)):
             break
+        iters += ~done
         ox = q[:, 0] - gh - cl[:, 0]
         oy = q[:, 1] - gh - cl[:, 1]
         patch = _sample_taps(slabs, oy, ox, gsize, n_taps)  # (N, gsize, gsize)
@@ -163,4 +167,72 @@ def corner_subpix(img, points, half_win: int = 5, max_iters: int = 100,
         # cv2 bails if the point drifts out of the window
         done = done | (torch.abs(q_new - pts) > drift_max).any(dim=1)
         q = q_new
-    return q
+    return q, iters
+
+
+def _subpix_k4(slabs, cl, pts, half_win: int, max_iters: int, eps: float):
+    """Launch K4 (``csrc/subpix.cu``) on CUDA tensors: ``subpix_loop_ref``'s
+    result, each point's loop run on the card with no host read. Counts
+    the launch on ``corner_subpix``."""
+    N, Q, _ = slabs.shape
+    dev = slabs.device
+    for name, t, shape, dtype in (("slabs", slabs, (N, Q, Q), torch.float32),
+                                  ("corners", cl, (N, 2), torch.int32),
+                                  ("points", pts, (N, 2), torch.float32)):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"corner_subpix: {name} must be contiguous {dtype} {shape} on "
+                             f"{dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    lib = cuda_build.library()
+    out = torch.empty((N, 2), dtype=torch.float32, device=dev)
+    iters = torch.empty((N,), dtype=torch.int32, device=dev)
+    if N == 0:
+        return out, iters
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.vt_corner_subpix(slabs.data_ptr(), Q, cl.data_ptr(), pts.data_ptr(), N,
+                              int(half_win), int(max_iters), float(eps * eps),
+                              out.data_ptr(), iters.data_ptr(), stream)
+    cuda_build.check(rc, "vt_corner_subpix")
+    corner_subpix.launches += 1
+    corner_subpix.launches_by_shape[Q] = corner_subpix.launches_by_shape.get(Q, 0) + 1
+    return out, iters
+
+
+def _subpix_slabs(img, pts, half_win: int):
+    """The (N, Q, Q) slab of each point that its refinement resamples
+    (K2 on a card), and the slabs' clamped corners (N, 2) xy: the patch
+    and its ring of differences, wherever a drift of up to half_win + 1
+    takes it."""
+    gsize = 2 * half_win + 3
+    drift_max = half_win + 1
+    Q = gsize + 2 * (drift_max + 1)
+    corner = torch.floor(pts).to(torch.int32) - gsize // 2 - drift_max - 1
+    return _extract_slabs(img, corner, Q)
+
+
+def _corner_subpix(img, points, half_win: int, max_iters: int, eps: float):
+    """``corner_subpix`` with each point's iteration count: (refined (N, 2),
+    iterations (N,) int32)."""
+    dtype = points.dtype if points.is_floating_point() else torch.float32
+    pts = points.to(dtype)
+    slabs, cl = _subpix_slabs(img.to(dtype), pts, half_win)
+    if pts.device.type == "cpu":
+        return subpix_loop_ref(slabs, cl, pts, half_win, max_iters, eps)
+    return _subpix_k4(slabs, cl, pts.contiguous(), half_win, max_iters, eps)
+
+
+def corner_subpix(img, points, half_win: int = 5, max_iters: int = 100,
+                  eps: float = 0.001):
+    """Subpixel corner refinement (cv2.cornerSubPix, zeroZone=(-1,-1)).
+
+    Corners drift at most ``half_win + 1`` px from their seed (cv2's bail
+    out), so one (Q, Q) slab per point is extracted up front (K2) and every
+    iteration resamples it. On a CPU tensor the plain loop refines them
+    (``subpix_loop_ref``); on a CUDA one K2 then K4 (``csrc/subpix.cu``),
+    which runs each point's whole loop on the card, or it raises.
+    """
+    return _corner_subpix(img, points, half_win, max_iters, eps)[0]
+
+
+corner_subpix.launches = 0  # K4's
+corner_subpix.launches_by_shape = {}  # slab size Q -> launches

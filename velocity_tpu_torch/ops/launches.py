@@ -1,9 +1,10 @@
 """The hand kernels' launch counters, read, set and added as one.
 
 Each kernel's wrapper (K1 ``lk_block_pallas.lk_block``, K2
-``slab_pallas.extract_slabs``, K3 ``patch_pallas.extract_patches``) adds one
-to its ``launches`` and to ``launches_by_shape[shape]`` where it launches
-its kernel, and nowhere else. A CUDA graph launches its kernels through the
+``slab_pallas.extract_slabs``, K3 ``patch_pallas.extract_patches``, K4
+``harris.corner_subpix``) adds one to its ``launches`` and to
+``launches_by_shape[shape]`` where it launches its kernel, and nowhere
+else. A CUDA graph launches its kernels through the
 wrappers only while it is captured: ``pipeline/step_graph.py`` sets the counters
 back after a capture and adds the capture's counts at each replay.
 
@@ -15,12 +16,13 @@ from __future__ import annotations
 
 def counters() -> dict:
     """{kernel name: its wrapper, which carries the counters}."""
+    from velocity_tpu_torch.ops.harris import corner_subpix
     from velocity_tpu_torch.ops.lk_block_pallas import lk_block
     from velocity_tpu_torch.ops.patch_pallas import extract_patches
     from velocity_tpu_torch.ops.slab_pallas import extract_slabs
 
     return {"lk_block": lk_block, "extract_slabs": extract_slabs,
-            "extract_patches": extract_patches}
+            "extract_patches": extract_patches, "corner_subpix": corner_subpix}
 
 
 def read() -> dict:

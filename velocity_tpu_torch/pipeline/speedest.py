@@ -40,7 +40,7 @@ from velocity_tpu_torch.camera.database import CameraInfo
 from velocity_tpu_torch.config import PipelineConfig, SolverConfig
 from velocity_tpu_torch.geometry.plate import license_plate_points
 from velocity_tpu_torch.geometry.projection import Intrinsics, image_to_world_plane
-from velocity_tpu_torch.ops.harris import corner_subpix, good_features
+from velocity_tpu_torch.ops.harris import _corner_subpix, good_features
 from velocity_tpu_torch.pipeline import report
 from velocity_tpu_torch.pipeline.roi import bounding_rect, inside_bbox
 from velocity_tpu_torch.pipeline.step_graph import _graph_step
@@ -98,17 +98,23 @@ def _fit_plane(p3, valid):
 def _init_features_run(gray, box, max_corners, quality, block, k,
                        subpix_win, subpix_iters, subpix_eps):
     """Harris in the ROI ``box`` = (x0, x1, y0, y1) + subpixel refinement,
-    on ``gray``'s device. Returns (refined points (M, 2) in image
-    coordinates, validity (M,))."""
+    on ``gray``'s device, read to the host in one copy. Returns (refined
+    points (M, 2) f32 in image coordinates, validity (M,)), and adds the
+    refinement's trip count (the most iterations a point ran) to the run's
+    counter ``subpix.iterations``."""
     x0, x1, y0, y1 = box
     roi = gray[y0:y1, x0:x1]
     corners = good_features(roi, max_corners=max_corners, quality_level=quality,
                             block=block, k=k)
     offset = torch.tensor([x0, y0], dtype=corners.points.dtype, device=gray.device)
     pts = corners.points + offset
-    refined = corner_subpix(gray, pts, half_win=subpix_win, max_iters=subpix_iters,
-                            eps=subpix_eps)
-    return refined, corners.valid
+    refined, iters = _corner_subpix(gray, pts, half_win=subpix_win, max_iters=subpix_iters,
+                                    eps=subpix_eps)
+    f32 = torch.float32
+    host = torch.cat([refined.to(f32), corners.valid[:, None].to(f32),
+                      iters[:, None].to(f32)], dim=1).cpu().numpy()
+    profiling.count("subpix.iterations", int(host[:, 3].max(initial=0)))
+    return host[:, :2], host[:, 2] != 0
 
 
 def _init_features(cfg: PipelineConfig, gray, q: np.ndarray):
@@ -126,8 +132,8 @@ def _init_features(cfg: PipelineConfig, gray, q: np.ndarray):
     valid = np.zeros(N, bool)
     p[0:4] = q
     valid[0:4] = True
-    p[4:] = refined.cpu().numpy()
-    valid[4:] = cvalid.cpu().numpy()
+    p[4:] = refined
+    valid[4:] = cvalid
     return p, valid, boxa, boxb
 
 
