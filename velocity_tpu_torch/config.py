@@ -96,6 +96,13 @@ class SolverConfig:
     # clips (the goldens) are untouched. 0 disables.
     pose_reject_sigma: float = 3.0
     pose_reject_above_px: float = 2.0
+    # the MSV's start and steps (solvers/triangulate.py:msv_refine_translation):
+    # "upstream" starts 1 m beyond the previous camera and takes every damped
+    # step (MSV.py:8-42); "tracked" starts at the newest camera's tracked
+    # translation and keeps a step only where the cost fell (solvers/lm.py).
+    # From upstream's start the solve settles on some clips far from the
+    # minimum that fits every track, or cycles to max_iters_msv.
+    msv_solve: str = "upstream"
 
 
 @dataclass(frozen=True)

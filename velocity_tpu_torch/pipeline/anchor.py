@@ -117,7 +117,10 @@ def reanchor(
     ``res_new`` (rows 0..i) replace the trajectory and residual columns when
     the refinement re-solved them. Inside a driver's run it is the span
     ``reanchor`` and counts its solver's iterations as
-    ``reanchor.iterations``."""
+    ``reanchor.iterations``; the MSV's phases are the spans
+    ``reanchor.plate_pose`` and ``reanchor.msv``, its LM's refused trial
+    steps the counter ``msv.rejected``, and ``msv.capped`` is 1 where the LM
+    stopped at ``max_iters_msv``."""
     intr64 = cam.intrinsics(scale=scale).to(dtype=F64)
     if cfg.anchor == "ba":
         nf = track_px.shape[0]
@@ -153,21 +156,25 @@ def reanchor(
     t_abs = None
     res_new = None
     if q is not None:
-        pose0, p3c, t_rel, res_track = resolve_plate_pose(intr64, q, track_px, cfg)
+        with profiling.span("reanchor.plate_pose"):
+            pose0, p3c, t_rel, res_track = resolve_plate_pose(intr64, q, track_px, cfg)
         t0_new = pose0.t.numpy().astype(np.float64)
         t_abs = t0_new[None, :] + t_rel
         origins = t_abs
         p3_base = np.where(np.isfinite(track_px[0]).all(axis=1)[:, None], p3c, p3)
         t_cur64 = t_rel[-1]
         res_new = res_track
-    msv = msv_refine_translation(
-        intr64,
-        torch.as_tensor(track_px, dtype=F64),
-        torch.as_tensor(vg),
-        torch.as_tensor(origins, dtype=F64),
-        config=cfg.solver,
-    )
+    with profiling.span("reanchor.msv"):
+        msv = msv_refine_translation(
+            intr64,
+            torch.as_tensor(track_px, dtype=F64),
+            torch.as_tensor(vg),
+            torch.as_tensor(origins, dtype=F64),
+            config=cfg.solver,
+        )
     profiling.count("reanchor.iterations", int(msv.iterations))
+    profiling.count("msv.rejected", msv.rejected)
+    profiling.count("msv.capped", int(msv.iterations >= cfg.solver.max_iters_msv))
     cloud = msv.points.numpy() - t_cur64
     p3_new = np.array(p3_base)
     p3_new[vg] = cloud[vg]

@@ -28,6 +28,13 @@ and Jacobians of all lanes are evaluated at once (the Jacobian's columns by
 one forward-mode pass per parameter, each lane's tangent the same unit
 vector); each lane's normal equations and solve run as its own call, which
 a batched matrix product could change in the last bit.
+
+Accepted steps (``accept_steps=True``, one unknown vector, run eagerly
+only): each damped step is a trial, kept only where the cost fell, with the
+damping adapted by the gain ratio as Nielsen's rule adapts it (Madsen,
+Nielsen & Tingleff, "Methods for non-linear least squares problems", 2004,
+Algorithm 3.16). The form above, which takes every step, is JAX's and
+upstream's (``MSV.py:28-42``); it stays the default and keeps its bits.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ class LMResult(NamedTuple):
     iterations: int | torch.Tensor  # iterations executed; captured or with lanes: int64 ((V,))
     delta_rms: torch.Tensor  # rms of last step
     residual_rms: torch.Tensor  # masked rms of residual at solution
+    rejected: int = 0  # trial steps refused (the accepted-step form; else 0)
 
 
 def _scalar(v, dtype, dev):
@@ -70,14 +78,26 @@ def lm_solve(
     ramp_rate: float = 0.2,
     use_ramp: bool = True,
     num_residuals=None,
+    accept_steps: bool = False,
+    jacobian_fn: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> LMResult:
     """Minimize ||residual_fn(x)||^2 with damped Gauss-Newton steps.
 
     ``residual_fn``: x -> r where r = z - zhat (masked entries zero).
     ``num_residuals``: count of *valid* residual entries for the reported rms
     (defaults to r.numel()). With lanes (``x0`` (V, nx)), ``damping`` and
-    ``num_residuals`` are scalars or (V,).
+    ``num_residuals`` are scalars or (V,). ``accept_steps``: keep a step
+    only where the cost fell (``_lm_solve_accepted``), ``damping`` its
+    first damping; ``jacobian_fn`` (x -> dr/dx, that form only) replaces
+    the forward-mode Jacobian there.
     """
+    if accept_steps:
+        if use_ramp:
+            raise ValueError("the accepted-step LM takes no ramp: its cost test sizes the steps")
+        return _lm_solve_accepted(residual_fn, x0, max_iters=max_iters, damping=damping,
+                                  tol=tol, num_residuals=num_residuals, jacobian_fn=jacobian_fn)
+    if jacobian_fn is not None:
+        raise ValueError("jacobian_fn is the accepted-step form's")
     if x0.dim() == 2:
         return _lm_solve_lanes(residual_fn, x0, max_iters=max_iters, damping=damping, tol=tol,
                                ramp_rate=ramp_rate, use_ramp=use_ramp,
@@ -113,13 +133,107 @@ def lm_solve(
             x = x + delta
             delta_rms = rms
         i += 1
-    r = residual_fn(x)
+    return LMResult(x=x, iterations=count if frozen else i, delta_rms=delta_rms,
+                    residual_rms=_residual_rms(residual_fn(x), num_residuals, dtype, dev))
+
+
+def _residual_rms(r, num_residuals, dtype, dev):
+    """The rms of ``r`` over ``num_residuals`` valid entries (all of them
+    where None), the count in the unknowns' ``dtype``."""
     if num_residuals is None:
         n = torch.full((), float(r.numel()), dtype=dtype, device=dev)
     else:
         n = torch.clamp(_scalar(num_residuals, dtype, dev), min=1.0)
-    return LMResult(x=x, iterations=count if frozen else i, delta_rms=delta_rms,
-                    residual_rms=torch.sqrt(torch.sum(r * r) / n))
+    return torch.sqrt(torch.sum(r * r) / n)
+
+
+def _lm_solve_accepted(residual_fn, x0, *, max_iters, damping, tol, num_residuals,
+                       jacobian_fn=None) -> LMResult:
+    """``lm_solve`` with a cost test on every step (one unknown vector x0
+    (nx,)).
+
+    Each iteration solves (J^T J + mu I) delta = -J^T r at the current x
+    and evaluates the cost ||r||^2 at x + delta. The gain ratio rho is the
+    cost's fall over the fall that the linear model predicts,
+    delta^T (mu delta - J^T r). Where rho > 0 the step is taken, the
+    Jacobian is evaluated anew and mu shrinks by max(1/3, 1 - (2 rho - 1)^3);
+    else x stays, mu grows by nu and nu doubles (Nielsen's rule). mu starts
+    at ``damping``.
+
+    The stop is the take-every-step form's own test, made at every x the
+    solve reaches: the step at the first damping,
+    (J^T J + damping I)^-1 (-J^T r), has an rms below ``tol``. That step
+    is then the last trial, taken unless the cost rose, as that form takes
+    its last step; its rms is ``delta_rms``. The step actually tried is no
+    measure of convergence: a damping grown by refused trials shrinks it far
+    from the minimum. The solve also stops where a refused trial's step is
+    below ``tol`` (no smaller step lowers the cost in this precision), and
+    at ``max_iters`` trials. ``iterations`` counts the trials, ``rejected``
+    the refused ones.
+
+    The cost test reads the host once a trial, so there is no captured form:
+    under ``utils.loops.fixed_trips()`` this raises.
+    """
+    if fixed_trips():
+        raise RuntimeError("the accepted-step LM reads its cost on the host every trial: "
+                           "it has no captured form")
+    if x0.dim() != 1:
+        raise ValueError(f"the accepted-step LM takes one unknown vector, not {tuple(x0.shape)}")
+    dtype, dev = x0.dtype, x0.device
+    nx = x0.shape[0]
+    eye = torch.eye(nx, dtype=dtype, device=dev)
+    tol = max(tol, 50.0 * float(torch.finfo(dtype).eps))
+    jac = jacfwd(residual_fn) if jacobian_fn is None else jacobian_fn
+    mu0 = float(damping)
+
+    def step(JtJ, g, mu):
+        delta = torch.linalg.solve_ex(JtJ + mu * eye, g).result  # SPD: the check never fires
+        return delta, torch.sqrt(torch.sum(delta * delta) / nx)
+
+    def linearize(x, r):
+        J = jac(x)
+        JtJ, g = J.T @ J, -(J.T @ r)
+        return float(torch.sum(r * r)), JtJ, g, step(JtJ, g, mu0)
+
+    x = x0
+    r = residual_fn(x)
+    cost, JtJ, g, (delta0, rms0) = linearize(x, r)
+    mu, nu = mu0, 2.0
+    moved = True  # a step taken since mu was last set to mu0
+    delta_rms = torch.full((), float("inf"), dtype=dtype, device=dev)
+    i = rejected = 0
+    while i < max_iters:
+        last = bool(rms0 < tol)
+        delta, rms = (delta0, rms0) if last else step(JtJ, g, mu)
+        i += 1
+        r_try = residual_fn(x + delta)
+        cost_try = float(torch.sum(r_try * r_try))
+        if last:
+            delta_rms = rms
+            if cost_try <= cost:
+                x, r = x + delta, r_try
+            else:
+                rejected += 1
+            break
+        fall = float(delta @ (mu * delta + g))  # the model's; > 0 unless delta is 0
+        rho = (cost - cost_try) / fall if fall > 0 else float("nan")  # nan: refused
+        if rho > 0:
+            x, r, moved = x + delta, r_try, True
+            cost, JtJ, g, (delta0, rms0) = linearize(x, r)
+            mu *= max(1.0 / 3.0, 1.0 - (2.0 * rho - 1.0) ** 3)
+            nu = 2.0
+        else:
+            rejected += 1
+            if bool(rms < tol):
+                if not moved:
+                    delta_rms = rms
+                    break
+                mu, nu, moved = mu0, 2.0, False
+                continue
+            mu *= nu
+            nu *= 2.0
+    return LMResult(x=x, iterations=i, delta_rms=delta_rms,
+                    residual_rms=_residual_rms(r, num_residuals, dtype, dev), rejected=rejected)
 
 
 def _lm_solve_lanes(residual_fn, x0, *, max_iters, damping, tol, ramp_rate, use_ramp,

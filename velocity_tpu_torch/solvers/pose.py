@@ -5,7 +5,10 @@ Torch twin of ``velocity_tpu/solvers/pose.py``:
 - ``solve_pose_rt``      <-> reference ``fcnNLS_Rt``
 - ``estimate_world_camera_pose`` <-> reference ``estimateWorldCameraPose``
 The host numpy twins (``_planar_pose_homography_np``, ``_polish_pose_np``,
-``solve_translation_np``, ``_mirror_plate_pose_np``) are copied as they are.
+``solve_translation_np``, ``_mirror_plate_pose_np``) are copied as they are,
+but that ``_polish_pose_np`` and ``solve_translation_np`` project the base
+and the forward-difference poses of an iteration in one call: the same
+arithmetic element for element, so the same bits.
 
 Lanes (JAX's vmap over videos): ``solve_translation`` and
 ``estimate_world_camera_pose(find_R=False)`` take points with a leading
@@ -168,11 +171,10 @@ def _polish_pose_np(intr: Intrinsics, q, plate, R0, t0,
     P = np.asarray(plate, np.float64)
     qn = np.asarray(q, np.float64)
 
-    def project(R, t):
-        pc = P @ R + t
-        u = (fx * pc[:, 0] + sk * pc[:, 1]) / pc[:, 2] + cx
-        v = fy * pc[:, 1] / pc[:, 2] + cy
-        return np.stack([u, v], 1)
+    def project(pc):  # (..., 4, 3) camera-frame corners -> (..., 4, 2)
+        u = (fx * pc[..., 0] + sk * pc[..., 1]) / pc[..., 2] + cx
+        v = fy * pc[..., 1] / pc[..., 2] + cy
+        return np.stack([u, v], -1)
 
     def rot(w):
         th = np.linalg.norm(w)
@@ -184,16 +186,18 @@ def _polish_pose_np(intr: Intrinsics, q, plate, R0, t0,
 
     R, t = np.asarray(R0, np.float64).copy(), np.asarray(t0, np.float64).copy()
     eps = 1e-6
+    # the forward differences' rotations, and the base and translated poses'
+    # offsets, are the same every iteration: the 7 projections of an
+    # iteration are one call on a (7, 4, 3) stack, element for element the
+    # arithmetic of 7 calls
+    rots = [rot(w) for w in np.eye(3) * eps]
+    shifts = np.concatenate([np.zeros((1, 3)), np.eye(3) * eps])  # base, t + dt_k
     for _ in range(iters):
-        r0 = (qn - project(R, t)).ravel()
-        J = np.zeros((8, 6))
-        for k in range(3):
-            w = np.zeros(3)
-            w[k] = eps
-            J[:, k] = ((qn - project(R @ rot(w).T, t)).ravel() - r0) / eps
-            dt = np.zeros(3)
-            dt[k] = eps
-            J[:, 3 + k] = ((qn - project(R, t + dt)).ravel() - r0) / eps
+        PR = P @ R
+        pcs = np.concatenate([[P @ (R @ d.T) + t for d in rots], PR + (t + shifts)[:, None, :]])
+        rs = (qn - project(pcs)).reshape(7, 8)
+        r0 = rs[3]
+        J = np.ascontiguousarray(((rs[[0, 1, 2, 4, 5, 6]] - r0) / eps).T)
         g = J.T @ r0
         H = J.T @ J + np.eye(6) * 1e-9
         try:
@@ -232,21 +236,20 @@ def solve_translation_np(intr: Intrinsics, pix, p3, t0, mask,
     x = np.asarray(t0, np.float64).copy()
     inv_f = 1.0 / fx
 
-    def zhat(t):
-        pc = P + t
-        u = (fx * pc[:, 0] + sk * pc[:, 1]) / pc[:, 2] + cx
-        v = fy * pc[:, 1] / pc[:, 2] + cy
-        return np.stack([u, v], 1).ravel()
+    def zhat(t):  # (..., 3) translations -> (..., 2M) pixels
+        pc = P + t[..., None, :]
+        u = (fx * pc[..., 0] + sk * pc[..., 1]) / pc[..., 2] + cx
+        v = fy * pc[..., 1] / pc[..., 2] + cy
+        return np.stack([u, v], -1).reshape(*t.shape[:-1], 2 * P.shape[0])
 
     dx = 1e-6
     lam = damping * inv_f * inv_f
+    # the base and the 3 forward-difference translations in one call
+    shifts = np.concatenate([np.zeros((1, 3)), np.eye(3) * dx])
     for i in range(max_iters):
-        r = (z - zhat(x)) * inv_f
-        J = np.empty((r.size, 3))
-        for k in range(3):
-            e = np.zeros(3)
-            e[k] = dx
-            J[:, k] = ((z - zhat(x + e)) * inv_f - r) / dx
+        rs = (z - zhat(x + shifts)) * inv_f
+        r = rs[0]
+        J = np.ascontiguousarray(((rs[1:] - r) / dx).T)
         JTJ = J.T @ J + np.eye(3) * lam
         # J here is d(z - zhat)/dx = -d(zhat)/dx, so this step equals the
         # reference's +inv(JTJ) J_zhat^T (z - zhat) update (NLS.py:122)

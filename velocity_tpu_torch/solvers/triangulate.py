@@ -54,6 +54,27 @@ def pairwise_intercept(origins: torch.Tensor, rays: torch.Tensor) -> torch.Tenso
     return (torch.sum(uv, dim=0) + B) / (2.0 * npair)
 
 
+def pairwise_intercept_affine(fixed: torch.Tensor, rays: torch.Tensor):
+    """``pairwise_intercept`` as an affine map of the last origin.
+
+    fixed (nf-1, 3) origins of all frames but the last, rays (nf, N, 3)
+    unit -> (C (N, 3), M (N, 3, 3)) with
+    ``pairwise_intercept(cat([fixed, a]), rays) = C + M @ a``: the midpoints
+    are linear in the origins and only the pairs (j, nf-1) hold ``a``
+    (d e/da = -u, d f/da = -v, so d s1/da = (u - d v)/g and
+    d t1/da = (d u - v)/g), and the origin term adds (nf-1) I.
+    """
+    nf = rays.shape[0]
+    C = pairwise_intercept(torch.cat([fixed, fixed.new_zeros(1, 3)]), rays)
+    u, v = rays[:-1], rays[-1:]  # the pairs (j, nf-1)
+    d = torch.sum(u * v, dim=-1)[..., None]  # (nf-1, N, 1)
+    g = (1.0 - d * d)[..., None]
+    duv = v[..., :, None] * (d * u - v)[..., None, :] + u[..., :, None] * (u - d * v)[..., None, :]
+    eye = torch.eye(3, dtype=rays.dtype, device=rays.device)
+    M = (torch.sum(duv / g, dim=0) + (nf - 1) * eye) / float(nf * (nf - 1))
+    return C, M
+
+
 def nray_intercept(origins: torch.Tensor, rays: torch.Tensor) -> torch.Tensor:
     """Least-squares intersection of the rays per point via 3x3 normal equations."""
     eye = torch.eye(3, dtype=rays.dtype, device=rays.device)
@@ -144,6 +165,7 @@ class MSVResult(NamedTuple):
     points: torch.Tensor  # (N, 3) triangulated cloud at the solution
     iterations: int
     residual_rms: torch.Tensor
+    rejected: int = 0  # LM trial steps refused (config.msv_solve "tracked")
 
 
 def msv_refine_translation(
@@ -160,7 +182,20 @@ def msv_refine_translation(
     The residual projects the re-triangulated cloud into the newest camera,
     so moving x moves that camera and every intercept. Masked lanes are
     sanitized (pixels -> principal point) and excluded from the residual.
+
+    ``config.msv_solve`` picks the start and the steps. "upstream" starts 1 m
+    beyond the previous camera and takes every damped step, as
+    ``MSV.py:8-42`` does. "tracked" starts at the newest camera's own
+    tracked translation, ``origins[-1] - origins[0]``, and keeps a step only
+    where the cost fell (``lm_solve(accept_steps=True)``): the objective is
+    not convex (a track whose rays are nearly parallel, near the point the
+    car recedes from, has an intercept that swings metres as x moves), and
+    from upstream's start the solve can settle in, or cycle around, a basin
+    far from the minimum that fits every track.
     """
+    if config.msv_solve not in ("upstream", "tracked"):
+        raise ValueError(f"msv_solve is 'upstream' or 'tracked', not {config.msv_solve!r}")
+    tracked = config.msv_solve == "tracked"
     dtype = pixels.dtype
     nf = pixels.shape[0]
 
@@ -172,17 +207,44 @@ def msv_refine_translation(
     rays = pixel_to_unit_ray(intr, pix)  # (nf, N, 3)
     u0 = origins[0][None, :] - origins  # (nf, 3)
     if x0 is None:
-        x0 = torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=pixels.device) - u0[nf - 2]
+        x0 = -u0[nf - 1] if tracked else (
+            torch.tensor([0.0, 0.0, 1.0], dtype=dtype, device=pixels.device) - u0[nf - 2])
 
     z = pix[nf - 1]  # (N, 2) observations in the newest frame
     mz = mask[:, None]
     intercept = nray_intercept if use_nray else pairwise_intercept
     inv_f = 1.0 / intr.fx
 
+    closed = {}
+    if tracked and not use_nray:
+        # the cloud in the newest-camera frame is C + K x (the last origin
+        # is -x): the residual and its Jacobian in closed form, a few host
+        # ops a call where the forward-mode pass takes hundreds
+        C, M = pairwise_intercept_affine(u0[:-1], rays)
+        K = torch.eye(3, dtype=dtype, device=pixels.device) - M
+        mj = mz[..., None]
+        fx, fy, skew = intr.fx, intr.fy, intr.skew
+
+        def cloud_at(x):
+            return C + K @ x
+
+        def jacobian(x):
+            X, Y, Z = cloud_at(x).unbind(-1)
+            iz = 1.0 / Z
+            zero = torch.zeros_like(iz)
+            dproj = torch.stack([  # d zhat / d cloud, (N, 2, 3)
+                torch.stack([fx * iz, skew * iz, -(fx * X + skew * Y) * iz * iz], -1),
+                torch.stack([zero, fy * iz, -fy * Y * iz * iz], -1)], -2)
+            return (torch.where(mj, -(dproj @ K), 0.0) * inv_f).reshape(-1, 3)
+
+        closed["jacobian_fn"] = jacobian
+    else:
+        def cloud_at(x):
+            A = torch.cat([u0[:-1], -x[None, :]], dim=0)  # (nf, 3)
+            return intercept(A, rays) + x  # into the newest-camera frame
+
     def residual(x):
-        A = torch.cat([u0[:-1], -x[None, :]], dim=0)  # (nf, 3)
-        cloud = intercept(A, rays) + x  # into the newest-camera frame
-        zhat = project_camera_points(intr, cloud)
+        zhat = project_camera_points(intr, cloud_at(x))
         # where, not multiply: masked lanes can triangulate to inf/nan
         return (torch.where(mz, z - zhat, 0.0) * inv_f).reshape(-1)
 
@@ -194,9 +256,11 @@ def msv_refine_translation(
         tol=config.tol,
         use_ramp=False,
         num_residuals=2.0 * torch.sum(mask),
+        accept_steps=tracked,
+        **closed,
     )
 
     A = torch.cat([u0[:-1], -res.x[None, :]], dim=0)
     cloud = intercept(A, rays) + res.x
     return MSVResult(t=res.x, points=cloud, iterations=res.iterations,
-                     residual_rms=res.residual_rms)
+                     residual_rms=res.residual_rms, rejected=res.rejected)
