@@ -11,7 +11,10 @@ image's edges, at every pyramid level of a 4032x3024 still; K2 and K3 with
 corners past every side, K2 also on a still, K2 and K3 also on a stack of
 three frames, one launch for all, beside three 2-D launches; each beside
 its launch floor, the same call at size 1; K4, ``corner_subpix``'s loop,
-on the 1,020 corners frame-0 init refines on the clip's first frame), then
+on the 1,020 corners frame-0 init refines on the clip's first frame; K5,
+stage 3's warped windows, bit for bit on the clip's first frame with a
+shared map, the backward leg's transposed centres and per-point maps on a
+stack of three frames), then
 drives the paths below on a 1920x1080, 20-frame synthetic clip with the default
 widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 
@@ -184,10 +187,11 @@ BA_RTOL = {"float64": 1e-8, "float32": 1e-3}
 # scale direction: with the CG camera solver the gauge factor is held to this
 BA_CG_GAUGE_TOL = 1e-2
 # (S, N) of every slab extraction on the lanes path: stages 1-2, stage-3
-# source, stage-3 backward destination, warped slabs, corner_subpix
-SLAB_SHAPES = ((24, 1024), (56, 1024), (64, 1024), (72, 1024), (27, 1020))
+# source, stage-3 backward destination, corner_subpix (K5 takes the warped
+# windows' slabs itself)
+SLAB_SHAPES = ((24, 1024), (56, 1024), (64, 1024), (27, 1020))
 # K2 on a stack (run_batch's batched step): lanes, sizes, points per lane
-SLAB_LANES, SLAB_BATCHED_SIZES = 3, (24, 72)
+SLAB_LANES, SLAB_BATCHED_SIZES = 3, (24, 64)
 # phase multivideo: the batch's K1 and K2 launches at most this many times
 # the largest single run's (one batched step per frame for all lanes)
 BATCH_LAUNCH_RATIO = 1.1
@@ -196,11 +200,12 @@ K1_CONFIGS = ((15, 24, 8, False), (51, 64, 10, True), (51, 64, 8, False))
 # five sums run in another order; a stop that flips moves a point by under
 # eps), the per-point iteration counts equal on at least this share
 K4_ATOL_PX, K4_SAME_ITERS = 2e-3, 0.99
+# K5 (stage 3's warped windows) at win 51: P 64 (Q 72), anchor offset 29
+K5_P, K5_OO = 64, 29
 K1_RTOL, K1_ATOL = 1e-5, 1e-4  # summation order and FMA contraction differ
 # Functions (module of velocity_tpu_torch.ops, name) whose device time each
-# path's profiled run reports: the eager PyTorch stencils that stand where
-# JAX leaves the work to XLA (the warped slabs' K2 launch counts inside
-# _extract_warped_lanes)
+# path's profiled run reports: where JAX leaves the work to XLA, K5 (the
+# whole of _extract_warped_lanes on a card) and the eager PyTorch stencils
 ANNOTATED = {"lanes": ("lk_lanes._extract_warped_lanes", "lk_lanes._sample_taps",
                        "lk_lanes._grad_xy"),
              "fast": ("lk_fast._extract_warped",)}
@@ -270,7 +275,8 @@ def phase_build():
     """Build the kernels; print each entry function's registers and spills.
     Fails unless the six K1 instantiations (the warp kernel, the block
     kernel with cached and with uncached gradients, each linear and cubic)
-    compiled without spills, or if a window gather instantiation spills."""
+    compiled without spills, or if a window gather instantiation or K5
+    spills."""
     from velocity_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
@@ -287,9 +293,10 @@ def phase_build():
     k1 = [r for r in rows if r[0].startswith("lk_block")]
     if len(k1) != 6 or any(st or ld for _, _, st, ld in k1):
         raise AssertionError(f"K1 instantiations with spills, or not six: {k1}")
-    spilled = [r for r in rows if r[0].startswith("gather_windows") and (r[2] or r[3])]
+    spilled = [r for r in rows if (r[0].startswith("gather_windows") or "warp_window" in r[0])
+               and (r[2] or r[3])]
     if spilled:
-        raise AssertionError(f"window gather instantiations with spills: {spilled}")
+        raise AssertionError(f"window gather or K5 instantiations with spills: {spilled}")
 
 
 def _gather_check(label, fn, ref, img, corners, size):
@@ -343,9 +350,9 @@ def _corners_with_outsiders(g, H, W, size, N, lo):
 def phase_k2(dev):
     """K2 against its plain version on a padded 1080p frame at the lanes
     path's shapes (timed), then untimed on a still of the stills phase's
-    size, padded as the warped slabs pad it and as corner_subpix reads it
-    (unpadded, corners reaching past the near sides too); corners past
-    every side included: bit-equal."""
+    size, padded as the backward leg's destination pads it and as
+    corner_subpix reads it (unpadded, corners reaching past the near sides
+    too); corners past every side included: bit-equal."""
     from velocity_tpu_torch.ops import slab_pallas as k2
     from velocity_tpu_torch.ops.lk import _pad_edge
     from velocity_tpu_torch.testing.synthetic_clip import STILLS_SIZE
@@ -361,7 +368,7 @@ def phase_k2(dev):
     rows += _gather_batched(dev, g, "K2", k2.extract_slabs, k2.extract_slabs_ref,
                             [(H, W, S) for S in SLAB_BATCHED_SIZES], img=img)
     still = torch.rand(STILLS_SIZE[::-1], generator=g, device=dev) * 255
-    for label, im, lo in (("still padded by 72", _pad_edge(still, 72), 0),
+    for label, im, lo in (("still padded by 64", _pad_edge(still, 64), 0),
                           ("unpadded still", still, None)):
         H, W = im.shape
         for S, N in SLAB_SHAPES:
@@ -637,6 +644,78 @@ def phase_k1(dev):
     return rows
 
 
+def _k5_case(dev, img, kind, N=N_POINTS, seed=0):
+    """(imgp, pad, centers (2, N), P, M, oo) of a stage-3 call on ``img``
+    (H, W) or a stack (V, H, W), edge-padded by Q as ``_level_loop`` pads
+    it: N points inside the frame, a shared near-identity map ("forward"),
+    the same with the centres as the transposed view the backward leg
+    hands over ("backward"), or one map per lane, lane-major ("lanes")."""
+    from velocity_tpu_torch.ops.lk import _pad_edge
+    from velocity_tpu_torch.ops.lk_lanes import WARP_TAPS, _round8
+
+    g = np.random.default_rng(seed)
+    H, W = img.shape[-2:]
+    V = img.shape[0] if img.dim() == 3 else 1
+    N -= N % V
+    Q = _round8(K5_P + WARP_TAPS)
+    pts = torch.as_tensor(np.stack([g.uniform(0, W, N), g.uniform(0, H, N)], 1)
+                          .astype(np.float32), device=dev)
+    M = torch.tensor([[1.012, 0.021, 3.4], [-0.017, 0.991, -1.2]], device=dev)
+    if kind == "lanes":
+        maps = np.eye(2, 3) + g.normal(0, [[0.02, 0.02, 2.0]] * 2, (V, 2, 3))
+        M = torch.as_tensor(maps.astype(np.float32), device=dev).repeat_interleave(N // V, 0)
+    centers = pts.T if kind == "backward" else pts.T.contiguous()
+    return _pad_edge(img, Q), Q, centers, K5_P, M, K5_OO
+
+
+def _k5_bound_ms(N: int, P: int):
+    """Bound of one K5 call: the N (P, P) float32 patches and the (2, N)
+    corner written once (the windows it reads overlap and sit in L2; like
+    ``k5_roofline`` the bound leaves them out)."""
+    return bound_ms(4 * N * P * P + 8 * N, 0)
+
+
+def phase_k5(dev, clip):
+    """K5 (stage 3's warped windows, ``csrc/warp_window.cu``) against its
+    plain version on the card at the main-path shapes: the forward leg's
+    windows on the clip's first frame, N 1024, a shared map (the step's
+    T23); the backward leg's (transposed centres); one map per lane on a
+    stack of SLAB_LANES frames (``run_batch``'s lanes). Each bit-equal
+    (patches and corners), one K5 launch and no K2 a call; then K5's time,
+    the plain version's (its ~110 kernels and K2) and the bound."""
+    from velocity_tpu_torch.ops import launches, lk_lanes
+
+    frame = torch.as_tensor(clip.reader.grays[0]).to(dev).float()
+    stack = torch.stack([torch.as_tensor(clip.reader.grays[i]).to(dev).float()
+                         for i in range(SLAB_LANES)])
+    rows = []
+    for kind, img in (("forward", frame), ("backward", frame), ("lanes", stack)):
+        args = _k5_case(dev, img, kind)
+        N, Q = args[2].shape[1], args[1]
+        before = launches.read()
+        got, got_c = lk_lanes._extract_warped_lanes(*args)
+        torch.cuda.synchronize()
+        counted = {k: n for k, (n, _) in launches.since(before).items() if n}
+        if counted != {"extract_warped": 1}:
+            raise AssertionError(f"K5 {kind}: a call launched {counted}, not one K5")
+        want, want_c = lk_lanes._extract_warped_lanes_ref(*args)
+        err = float((got - want).abs().max())
+        same = torch.equal(got.view(torch.int32), want.view(torch.int32)) and torch.equal(
+            got_c, want_c)
+        if not same:
+            raise AssertionError(f"K5 {kind} against the plain version: not bit-equal, max "
+                                 f"abs err {err}")
+        ms = cuda_ms(lambda: lk_lanes._extract_warped_lanes(*args))
+        plain_ms = cuda_ms(lambda: lk_lanes._extract_warped_lanes_ref(*args), calls=5)
+        b_ms, b_by = _k5_bound_ms(N, K5_P)
+        print(f"K5 {kind} (N={N}, P {K5_P}, Q {Q}, image {tuple(args[0].shape)}, map "
+              f"{tuple(args[4].shape)}): bit-equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by}); {b_ms / ms:.0%} of the bound's rate")
+        rows.append(dict(label=f"K5 {kind}", P=K5_P, Q=Q, N=N, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 def _still_levels(dev):
     """(W, H) of every level of a still's two pyramids, largest first: the
     images whose size K1's in-bounds gate reads on the stills path."""
@@ -665,7 +744,7 @@ def _read_counts():
 
 
 def _launches_since(before):
-    """[K1, K2, K3, K4 launches] since ``launches.read()`` gave ``before``."""
+    """[K1, K2, K3, K4, K5 launches] since ``launches.read()`` gave ``before``."""
     from velocity_tpu_torch.ops import launches
 
     return [n for n, _ in launches.since(before).values()]
@@ -820,6 +899,10 @@ def phase_slice(dev, clip, lk_backend, path_kernels, rows):
               f"{n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
     for name in ("extract_slabs", "extract_patches"):
         _print_gaps(lk_backend, name, by_shape[name], rows[name])
+    for (P, Q), n in sorted(by_shape["extract_warped"].items()):
+        r = next(r for r in rows["extract_warped"] if r["P"] == P and r["Q"] == Q)
+        print(f"slice {lk_backend}: K5 P {P} Q {Q}: {n} launches x ({r['ms']:.4f} - "
+              f"{r['bound_ms']:.4f} ms) = {n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
     _check_run(lk_backend, res, clip, launches, path_kernels, jax_kmh)
     _profile(lambda: run(PROFILE_FRAMES), lk_backend)
     return launches
@@ -1055,7 +1138,8 @@ def phase_graph(dev, clip):
     rows = []
     for key, gr in seen.items():
         shapes = key[1]
-        k1, k2, k3 = (gr.launches[k][0] for k in ("lk_block", "extract_slabs", "extract_patches"))
+        k1, k2, k3, k5 = (gr.launches[k][0] for k in ("lk_block", "extract_slabs",
+                                                      "extract_patches", "extract_warped"))
         nodes = _node_count(gr.graph.raw_cuda_graph())
         rows.append(dict(frame=list(shapes[0][0]), points=gr.n, backend=key[2].lk_backend,
                          shard_features=key[2].shard_features,
@@ -1063,12 +1147,12 @@ def phase_graph(dev, clip):
                          pool_mb=gr.pool_bytes / 2**20, inputs_mb=gr.input_bytes / 2**20,
                          replays=gr.replays,
                          launches_per_replay=dict(lk_block=k1, extract_slabs=k2,
-                                                  extract_patches=k3)))
+                                                  extract_patches=k3, extract_warped=k5)))
         print(f"graph: frame {shapes[0][0]} {key[2].lk_backend} shard_features "
               f"{key[2].shard_features} lean {key[5]}: {nodes} nodes, captured in "
               f"{gr.capture_s:.2f} s (warm-up included), pool {gr.pool_bytes / 2**20:.1f} MiB "
               f"and inputs {gr.input_bytes / 2**20:.1f} MiB, "
-              f"{gr.replays} replays so far, per replay K1 {k1} K2 {k2} K3 {k3}")
+              f"{gr.replays} replays so far, per replay K1 {k1} K2 {k2} K3 {k3} K5 {k5}")
     print(f"graph: {len(rows)} graphs ({len(step_graph.step_graphs())} kept), frames compared "
           f"{compared}; device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved now")
@@ -2144,8 +2228,11 @@ def main() -> int:
     print(f"clip: {N_FRAMES} x 1080x1920 rendered in {time.perf_counter() - t0:.1f} s, "
           f"true speed {clip.speed_kmh:.3f} km/h")
     k4_rows = phase_k4(dev, clip)
-    rows = {"lk_block": k1_rows, "extract_slabs": k2_rows, "extract_patches": k3_rows}
-    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs", "corner_subpix"), rows)
+    k5_rows = phase_k5(dev, clip)
+    rows = {"lk_block": k1_rows, "extract_slabs": k2_rows, "extract_patches": k3_rows,
+            "extract_warped": k5_rows}
+    lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs", "corner_subpix",
+                                             "extract_warped"), rows)
     fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs", "corner_subpix"),
                        rows)
     phase_graph(dev, clip)
@@ -2160,7 +2247,7 @@ def main() -> int:
     bench = phase_bench(dev, clip)
 
     k1_main = next(r for r in k1_rows if r.get("win") == 51 and r.get("cubic") and r.get("it0") == 0)
-    k2_main = next(r for r in k2_rows if r["size"] == 72)
+    k2_main = next(r for r in k2_rows if r["size"] == 64)
     k3_main = next(r for r in k3_rows if r["size"] == 82)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by")
     paths = {"lanes": lanes, "fast": fast, **drivers, "stills": stills, **multivideo,
@@ -2200,6 +2287,13 @@ def main() -> int:
          "launches_by_path": by_path("corner_subpix"), "max_abs_err": k4_rows[0]["max_abs_err"],
          **{k: k4_rows[0][k] for k in keys}, "call_ms": k4_rows[0]["call_ms"],
          "library_ms": None},
+        {"name": "extract_warped", "route": "cuda",
+         "source": "velocity_tpu_torch/csrc/warp_window.cu", "replaces": None,
+         "launches": bench["extract_warped"], "launches_by_path": by_path("extract_warped"),
+         "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
+         **{k: k5_rows[0][k] for k in keys}, "library_ms": None,
+         "shapes": [{k: r[k] for k in ("label", "N", "ms", "plain_ms", "bound_ms")}
+                    for r in k5_rows]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,10 +1,12 @@
-"""Plain versions of the port's kernels K1 (LK block) and K2 (slab
-extraction, which clamps its corners) against the JAX package, the sampling
-K1's CUDA kernel does (only the taps that weigh), and the input checks of
-K2's and K3's wrappers, on the CPU; the CUDA kernels K1, K2, K3 (patch
-extraction) and K4 (``corner_subpix``'s refinement loop) against their
-plain versions on the card (``cuda`` marker), K2 and K3 also at their
-edges, K4 also on the edge cases its CPU test shows the plain loop meets.
+"""Plain versions of the port's kernels K1 (LK block), K2 (slab
+extraction, which clamps its corners) and K5 (stage 3's warped windows)
+against the JAX package, the sampling K1's CUDA kernel does (only the taps
+that weigh), and the input checks of K2's, K3's and K5's wrappers, on the
+CPU; the CUDA kernels K1, K2, K3 (patch extraction), K4
+(``corner_subpix``'s refinement loop) and K5 against their plain versions
+on the card (``cuda`` marker), K2 and K3 also at their edges, K4 also on
+the edge cases its CPU test shows the plain loop meets, K5 bit for bit at
+its edges and in a captured stage-3 call.
 K3's CPU parity tests are in ``test_torch_lk_fast.py``; K4's plain twin is
 held to the loop before K4 in ``test_torch_features.py``.
 
@@ -12,6 +14,8 @@ The JAX package is imported inside the CPU tests only, so that the card
 tests run where JAX is not installed:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
+
+import zlib
 
 import numpy as np
 import pytest
@@ -687,3 +691,251 @@ def test_k4_matches_plain_on_card(cuda_device, case):
         assert (iters[flat:] == 1).all() and torch.equal(got[flat:], seeds[flat:])
         drift = (want - seeds).abs().amax(dim=1) > 6
         assert bool(((got - seeds).abs().amax(dim=1) > 6)[drift].all())
+
+
+# ------------------------------------------------------------------------ K5
+
+# Stage 3's warped windows at win 51: the forward leg's and the backward
+# leg's source windows take the same shape, P 64 (Q 72), anchor offset 29.
+K5_P, K5_Q, K5_OO = 64, 72, 29
+
+
+def _warp_image(H, W, seed):
+    """A smooth random texture (as a level of a frame) with a black block
+    (exact zeros) and a block below zero, so that the stencils' products
+    and sums meet +-0."""
+    rng = np.random.default_rng(seed)
+    img = torch.as_tensor(rng.uniform(0, 255, (H // 8 + 2, W // 8 + 2)).astype(np.float32))
+    img = torch.nn.functional.interpolate(img[None, None], size=(H, W), mode="bilinear",
+                                          align_corners=False)[0, 0]
+    img[: H // 5, : W // 5] = 0.0
+    img[H // 2:, W // 2:] -= 128.0
+    return img.contiguous()
+
+
+def _warp_maps(rng, n):
+    """n near-identity affine maps (n, 2, 3), float32."""
+    return torch.as_tensor((np.eye(2, 3) + rng.normal(0, [[0.03, 0.03, 2.0]] * 2, (n, 2, 3)))
+                           .astype(np.float32))
+
+
+def _warped_case(kind, device="cpu", N=1024, H=270, W=480):
+    """(imgp, pad, centers (2, N), P, M, oo) of a stage-3 call: the level
+    edge-padded by Q as ``_level_loop`` pads it, points inside it (and, for
+    "edges", on and past the padded image's edges, huge and NaN), a shared
+    (2, 3) map or one per point; "backward" hands the centres as the
+    transposed view the backward leg's source windows take; "stack" and
+    "stack_shared" put V = 3 images in one (V, H, W) stack, lane-major;
+    "small_m11" and "edges" give maps with |m11| <= 1e-3 (the reciprocal's
+    fallback) and around it."""
+    from velocity_tpu_torch.ops.lk import _pad_edge
+
+    rng = np.random.default_rng(zlib.crc32(kind.encode()))
+    V = 3 if kind.startswith("stack") else 1
+    img = torch.stack([_warp_image(H, W, seed=v) for v in range(V)]) if V > 1 \
+        else _warp_image(H, W, seed=7)
+    N -= N % V
+    pts = np.stack([rng.uniform(-20, W + 20, N), rng.uniform(-20, H + 20, N)], 1)
+    shared = torch.tensor([[1.02, 0.03, 1.7], [-0.02, 0.98, -2.3]])
+    M = shared if kind in ("forward", "backward", "stack_shared") else _warp_maps(rng, N)
+    if kind == "stack":
+        M = _warp_maps(rng, V).repeat_interleave(N // V, dim=0)
+    if kind in ("small_m11", "edges"):
+        f32 = float(np.float32(1e-3))
+        m11 = [0.0, 5e-4, -5e-4, f32, -f32, 1.0000001e-3, 2e-3, -0.9]
+        M[: len(m11), 1, 1] = torch.tensor(m11)
+    if kind == "edges":
+        Hp, Wp = H + 2 * K5_Q, W + 2 * K5_Q
+        pts[:12] = [[0, 0], [-K5_Q, -K5_Q], [W + K5_Q - 1, H + K5_Q - 1], [-3 * K5_Q, H / 2],
+                    [W / 2, -3 * K5_Q], [Wp, Hp], [W - 0.5, H - 0.5], [1e9, -1e9],
+                    [-1e9, 1e9], [np.inf, 3.0], [np.nan, 5.0], [12.25, np.nan]]
+    pts = torch.as_tensor(pts.astype(np.float32), device=device)
+    centers = pts.T if kind == "backward" else pts.T.contiguous()
+    return (_pad_edge(img.to(device), K5_Q), K5_Q, centers, K5_P, M.to(device), K5_OO)
+
+
+def _same_bits(a, b):
+    """Equal shapes, NaN at the same places and every other word bit-equal
+    (the sign of a zero too)."""
+    nan = a.isnan()
+    return (a.shape == b.shape and torch.equal(nan, b.isnan())
+            and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
+
+
+@pytest.mark.parametrize("m11", [0.97, 4e-4])
+def test_plain_warped_windows_match_jax(m11):
+    """The plain stage-3 warped windows (K5's twin, on K2's plain slabs)
+    against JAX's ``_extract_warped_lanes`` on one shared map, inside the
+    image and past its edges; with |m11| under 1e-3 both take the
+    reciprocal's fallback. The corners exactly, the patches within XLA's
+    contraction of products into FMAs."""
+    import jax.numpy as jnp
+    from velocity_tpu.ops.lk_lanes import _extract_warped_lanes as jax_warped
+
+    imgp, pad, centers, P, _, oo = _warped_case("forward", N=96, H=60, W=90)
+    M = torch.tensor([[1.02, 0.03, 1.7], [-0.02, m11, -2.3]])
+    got, got_c = lk_lanes._extract_warped_lanes_ref(imgp, pad, centers, P, M, oo)
+    want, want_c = jax_warped(jnp.asarray(imgp.numpy()), pad, jnp.asarray(centers.numpy()), P,
+                              jnp.asarray(M.numpy()), oo)
+    np.testing.assert_array_equal(got_c.numpy(), np.asarray(want_c))
+    np.testing.assert_allclose(got.numpy(), np.transpose(np.asarray(want), (2, 0, 1)),
+                               rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("kind", ["forward", "backward", "per_point", "stack", "edges"])
+def test_k5_wrapper_on_cpu_is_the_plain_version(kind):
+    """On the CPU ``_extract_warped_lanes`` is its plain version bit for bit
+    and launches nothing: a whole stage-3 forward-backward call leaves every
+    kernel counter, K5's too, at 0."""
+    from velocity_tpu_torch.ops import launches
+
+    imgp, pad, centers, P, M, oo = _warped_case(kind, N=48, H=60, W=90)
+    saved = launches.read()
+    try:
+        launches.set_counts()
+        got, got_c = lk_lanes._extract_warped_lanes(imgp, pad, centers, P, M, oo)
+        img = imgp[..., pad:-pad, pad:-pad]
+        if kind == "forward":
+            pts = torch.as_tensor(np.random.default_rng(2).uniform(10, 50, (24, 2))
+                                  .astype(np.float32))
+            lk_lanes.lk_forward_backward_lanes(img, img + 1.0, pts, fb_threshold=0.3,
+                                               warp_dst=M, win=51, max_level=0, iters=5,
+                                               eps=0.001)
+        assert launches.read() == {name: (0, {}) for name in launches.counters()}
+    finally:
+        launches.set_counts(saved)
+    want, want_c = lk_lanes._extract_warped_lanes_ref(imgp, pad, centers, P, M, oo)
+    assert got.shape == (centers.shape[1], P, P) and got_c.shape == (2, centers.shape[1])
+    assert _same_bits(got, want) and _same_bits(got_c, want_c)
+
+
+def test_k5_wrapper_refuses_bad_inputs():
+    """K5's launcher refuses a dtype other than float32, centres that are
+    not (2, N), a map that is neither (2, 3) nor one per point, a
+    non-contiguous image or map, an image smaller than the slab, points
+    that do not split over a stack, and a device other than CUDA, before it
+    builds or launches anything; the wrapper sends a device that is neither
+    the CPU nor CUDA there."""
+    imgp, pad, centers, P, M, oo = _warped_case("per_point", N=12, H=60, W=90)
+    meta = [t.to("meta") for t in (imgp, centers, M)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk_lanes._extract_warped_lanes(meta[0], pad, meta[1], P, meta[2], oo)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk_lanes.extract_warped(imgp, pad, centers, P, M, oo)
+    bad = [(imgp, centers.double(), M), (imgp, centers[:1], M), (imgp, centers, M[:5]),
+           (imgp, centers, M[:, :, :2]), (imgp.double(), centers, M), (imgp.t(), centers, M),
+           (imgp[:60, :70].contiguous(), centers, M), (imgp[None].expand(5, -1, -1).contiguous(),
+                                                      centers, M),
+           (imgp, centers, M.transpose(1, 2).contiguous().transpose(1, 2))]
+    for img_b, c_b, m_b in bad:
+        with pytest.raises(ValueError, match="must be|points on"):
+            lk_lanes.extract_warped(img_b, pad, c_b, P, m_b, oo)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["forward", "backward", "per_point", "stack", "stack_shared",
+                                  "small_m11", "edges", "frame_1080p"])
+def test_k5_matches_plain_on_card(cuda_device, kind):
+    """K5 (``_extract_warped_lanes`` on a card: one launch, no host read)
+    bit-equal to its plain version on the card, patches and corners: the
+    forward leg's and the backward leg's (transposed centres) windows, a
+    shared map and one per point, an (H, W) image and a stack of 3, maps
+    that take the reciprocal's fallback, points on and past the padded
+    image's edges, huge and NaN; and at a 1080p frame's full width, 1,024
+    points."""
+    from velocity_tpu_torch.ops import launches
+
+    if kind == "frame_1080p":
+        imgp, pad, centers, P, M, oo = _warped_case("forward", cuda_device, H=1080, W=1920)
+    else:
+        imgp, pad, centers, P, M, oo = _warped_case(kind, cuda_device)
+    saved = launches.read()
+    try:
+        launches.set_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got, got_c = lk_lanes._extract_warped_lanes(imgp, pad, centers, P, M, oo)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counts = launches.read()
+    finally:
+        launches.set_counts(saved)
+    assert counts["extract_warped"] == (1, {(K5_P, K5_Q): 1})
+    assert counts["extract_slabs"] == (0, {})
+    want, want_c = lk_lanes._extract_warped_lanes_ref(imgp, pad, centers, P, M, oo)
+    assert _same_bits(got_c, want_c)
+    assert float((got - want).abs().nan_to_num().max()) == 0.0
+    assert _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_k5_captured_stage3_matches_eager_on_card(cuda_device):
+    """A stage-3 call (``lk_forward_backward_lanes`` with a warp, win 51,
+    level 0, 30 iterations: the frame step's) captured in a CUDA graph in
+    the step's fixed-trip form and replayed gives the eager call's points
+    and status bit for bit, and its capture counts 7 K5 launches: one for
+    each of the forward leg's 6 blocks and one for the backward leg's
+    source windows."""
+    from velocity_tpu_torch.ops import launches
+    from velocity_tpu_torch.utils.loops import fixed_trip_loops
+
+    H, W = 540, 960
+    src = _warp_image(H, W, seed=3).to(cuda_device)
+    M = torch.tensor([[1.01, 0.02, 3.4], [-0.015, 0.99, -1.2]], device=cuda_device)
+    yy, xx = torch.meshgrid(torch.arange(H, dtype=torch.float32, device=cuda_device),
+                            torch.arange(W, dtype=torch.float32, device=cuda_device),
+                            indexing="ij")
+    # the destination frame: src sampled through the inverse map, so M is the motion
+    A = M[:, :2]
+    Ai = torch.linalg.inv(A)
+    q = torch.stack([xx - M[0, 2], yy - M[1, 2]], dim=-1) @ Ai.T
+    grid = torch.stack([q[..., 0] / (W - 1) * 2 - 1, q[..., 1] / (H - 1) * 2 - 1], dim=-1)
+    dst = torch.nn.functional.grid_sample(src[None, None], grid[None], align_corners=True,
+                                          padding_mode="border")[0, 0].contiguous()
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(np.stack([rng.uniform(40, W - 40, 1024), rng.uniform(40, H - 40, 1024)],
+                                   1).astype(np.float32), device=cuda_device)
+    kw = dict(fb_threshold=0.3, warp_dst=M, win=51, max_level=0, iters=30, eps=0.001)
+
+    def call():
+        with fixed_trip_loops():
+            return lk_lanes.lk_forward_backward_lanes(src, dst, pts, **kw)
+
+    want = call()
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    torch.cuda.synchronize()
+    saved = launches.read()
+    try:
+        launches.set_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            out = call()
+        counts = launches.read()
+    finally:
+        launches.set_counts(saved)
+    assert counts["extract_warped"] == (7, {(K5_P, K5_Q): 7})
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out.points, want.points) and torch.equal(out.status, want.status)
+    assert int(want.status.sum()) > 256  # the points track: the comparison is not of nothing
+
+
+@pytest.mark.cuda
+def test_k5_counts_while_its_caller_is_wrapped(cuda_device, monkeypatch):
+    """K5 counts its launch on its own wrapper, ``extract_warped``, also
+    while ``_extract_warped_lanes`` is replaced by a wrapper of it, as a
+    profiler annotation replaces it."""
+    from velocity_tpu_torch.ops import launches
+
+    real = lk_lanes._extract_warped_lanes
+    monkeypatch.setattr(lk_lanes, "_extract_warped_lanes", lambda *args: real(*args))
+    before = launches.read()
+    lk_lanes._extract_warped_lanes(*_warped_case("forward", cuda_device, N=64))
+    torch.cuda.synchronize()
+    assert launches.since(before)["extract_warped"] == (1, {(K5_P, K5_Q): 1})

@@ -303,18 +303,21 @@ def test_loop_form_is_eager_outside_a_capture():
 
 
 def test_launch_counts_move_as_one():
-    """``ops/launches.py`` reads, sets, adds and differences the four
-    wrappers' counters as the graph's capture and replays do."""
+    """``ops/launches.py`` reads, sets, adds and differences the five
+    wrappers' counters (K5's ``extract_warped`` keyed by (P, Q)) as the
+    graph's capture and replays do."""
     saved = launches.read()
     try:
         launches.set_counts()
         assert launches.read() == {name: (0, {}) for name in launches.counters()}
         add = {"lk_block": (3, {(15, False): 3}), "extract_slabs": (2, {24: 1, 72: 1}),
-               "extract_patches": (0, {}), "corner_subpix": (1, {27: 1})}
+               "extract_patches": (0, {}), "corner_subpix": (1, {27: 1}),
+               "extract_warped": (7, {(64, 72): 7})}
         before = launches.read()
         launches.add(add)
         launches.add(add)
         assert launches.counters()["lk_block"].launches == 6
+        assert launches.counters()["extract_warped"].launches_by_shape == {(64, 72): 14}
         assert launches.since(before) == {name: (2 * n, {k: 2 * m for k, m in by.items()})
                                          for name, (n, by) in add.items()}
         launches.set_counts(before)
@@ -331,7 +334,9 @@ def test_graph_segment_matches_the_eager_step_on_card(clips, lk_backend):
     """On the card ``scan_segment`` replays one captured graph per frame:
     its outputs and carry equal those of the eager step called frame by
     frame with a generator in the same state, bit for bit, on one lane and
-    on two; the kernels' counters read one capture's launches per replay."""
+    on two; the kernels' counters read one capture's launches per replay:
+    K5 7 a replay on the lanes backend (stage 3's six forward blocks and
+    the backward leg's source windows), none on the fast one."""
     from velocity_tpu_torch.pipeline import step_graph
 
     cfg = _cfg(lk_backend)
@@ -350,8 +355,12 @@ def test_graph_segment_matches_the_eager_step_on_card(clips, lk_backend):
             return g if lanes > 1 else g[0]
 
         seg = frames[:, 1:] if lanes > 1 else frames[1:]
+        before = launches.read()
         carry, outs = scan_segment(seg, pyr, spyr, pts, vg, vp, t0, p3, intr, gens(),
                                    cfg.tracker, cfg.solver, torch.float32)
+        k5 = launches.since(before)["extract_warped"][0]
+        assert k5 == (7 * (seg.shape[1] if lanes > 1 else len(seg))
+                      if lk_backend == "lanes" else 0)
         g = gens()
         state = (pyr, spyr, pts, vg, vp, t0)
         want = []

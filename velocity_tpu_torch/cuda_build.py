@@ -27,6 +27,7 @@ LINK_FLAGS = [*ARCH, "-shared"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # (restype, argtypes) of every exported C function; pointers and the stream
 # are c_void_p so that 64-bit addresses are not cut to int. vt_lk_block's
 # masks (trackable, done in, done out) point at torch.bool bytes.
@@ -38,6 +39,8 @@ SIGNATURES = {
     "vt_lk_block": (_I, [_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                          _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P]),
     "vt_corner_subpix": (_I, [_P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P]),
+    "vt_extract_warped": (_I, [_P, _I, _I, _I, _I, _P, _L, _L, _P, _I, _I, _I, _I, _I,
+                               _P, _P, _P]),
 }
 
 _lib = None

@@ -11,9 +11,11 @@ stencil.
 The JAX engine puts the point axis last, on the TPU's 128 lanes. Here every
 patch tensor is points-major, ``(N, P, P)``: one point's slab is contiguous,
 which is what a thread block per point reads. Public functions keep JAX's
-layouts (points ``(N, 2)``). The two kernel hooks sit where the JAX engine
+layouts (points ``(N, 2)``). Two kernel hooks sit where the JAX engine
 calls Pallas: ``_extract_slabs`` (K2) and the block update in
-``_level_loop`` (K1).
+``_level_loop`` (K1). A third, ``_extract_warped_lanes`` (K5,
+``csrc/warp_window.cu``), stands where the JAX engine leaves the warped
+windows to XLA's fusion.
 
 JAX's ``run_batch`` vmaps this engine over videos. Here the lanes of a batch
 are written out: the images are stacks (V, H, W) of equal-sized frames, the
@@ -31,6 +33,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from velocity_tpu_torch import cuda_build
 from velocity_tpu_torch.ops.lk import (LKResult, _affine_for_level, _grad_xy, _pad_edge,
                                        _per_point)
 from velocity_tpu_torch.ops.lk_block_pallas import (  # noqa: F401
@@ -71,8 +74,9 @@ def _extract_slabs(img, corners, size: int):
     return extract_slabs(img.contiguous(), corners, size)
 
 
-def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
-    """(N, P, P) patches of the (pre-padded) image sampled through affine M.
+def _extract_warped_lanes_ref(imgp, pad: int, centers, P: int, M, oo: int):
+    """Plain version of ``_extract_warped_lanes`` (K5's twin): (N, P, P)
+    patches of the (pre-padded) image sampled through affine M.
 
     The destination grid for output (i, j) of point n is
     ``centers[:, n] + (j - oo, i - oo)``. Bilinear interpolation factors into
@@ -138,6 +142,67 @@ def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
 
     corner = torch.stack([cx - oo, cy - oo], dim=0)
     return out, corner
+
+
+def _extract_warped_lanes(imgp, pad: int, centers, P: int, M, oo: int):
+    """(N, P, P) patches of the (pre-padded) image sampled through affine M,
+    and the fractional window corner (2, N); arguments as
+    ``_extract_warped_lanes_ref``'s.
+
+    CPU tensors take the plain version; CUDA ones launch K5
+    (``csrc/warp_window.cu``: the corners, the slab and both passes of
+    every point in one kernel, the plain version's bits) or raise.
+    """
+    if centers.device.type == "cpu":
+        return _extract_warped_lanes_ref(imgp, pad, centers, P, M, oo)
+    return extract_warped(imgp, pad, centers, P, M, oo)
+
+
+def extract_warped(imgp, pad: int, centers, P: int, M, oo: int):
+    """K5's wrapper: launch it on CUDA tensors and count the launch in its
+    ``launches`` and ``launches_by_shape`` ((P, Q) -> launches). Raises
+    ValueError on inputs K5 does not take (a dtype other than float32,
+    centres not (2, N), a map neither (2, 3) nor one per point, a
+    non-contiguous image or map, an image smaller than the slab, a device
+    other than one CUDA device)."""
+    Q = _round8(P + WARP_TAPS)
+    if centers.dtype != torch.float32 or centers.dim() != 2 or centers.shape[0] != 2:
+        raise ValueError(f"extract_warped: centers must be float32 (2, N), got "
+                         f"{centers.dtype} {tuple(centers.shape)}")
+    N = centers.shape[1]
+    if imgp.dtype != torch.float32 or imgp.dim() not in (2, 3) or not imgp.is_contiguous():
+        raise ValueError(f"extract_warped: imgp must be a contiguous float32 (H, W) or "
+                         f"(V, H, W), got {imgp.dtype} {tuple(imgp.shape)}")
+    if M.dtype != torch.float32 or tuple(M.shape) not in ((2, 3), (N, 2, 3)) \
+            or not M.is_contiguous():
+        raise ValueError(f"extract_warped: M must be a contiguous float32 (2, 3) or "
+                         f"({N}, 2, 3), got {M.dtype} {tuple(M.shape)}")
+    H, W = imgp.shape[-2:]
+    V = imgp.shape[0] if imgp.dim() == 3 else 1
+    if Q > min(H, W) or V == 0 or N % V:
+        raise ValueError(f"extract_warped: {N} points on {V} images of {H}x{W} "
+                         f"(slab {Q})")
+    dev = centers.device
+    if dev.type != "cuda" or imgp.device != dev or M.device != dev:
+        raise ValueError(f"extract_warped: unsupported device {dev} (image on "
+                         f"{imgp.device}, map on {M.device})")
+    out = torch.empty((N, P, P), dtype=torch.float32, device=dev)
+    corner = torch.empty((2, N), dtype=torch.float32, device=dev)
+    if N == 0:
+        return out, corner
+    lib = cuda_build.library()
+    rc = lib.vt_extract_warped(imgp.data_ptr(), V, H, W, pad, centers.data_ptr(),
+                               centers.stride(0), centers.stride(1), M.data_ptr(),
+                               6 if M.dim() == 3 else 0, N, P, Q, oo, out.data_ptr(),
+                               corner.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check(rc, "vt_extract_warped")
+    extract_warped.launches += 1
+    extract_warped.launches_by_shape[(P, Q)] = extract_warped.launches_by_shape.get((P, Q), 0) + 1
+    return out, corner
+
+
+extract_warped.launches = 0
+extract_warped.launches_by_shape = {}  # (P, Q) -> launches
 
 
 def _level_loop(
