@@ -38,7 +38,7 @@ import torch
 
 from velocity_tpu_torch.config import PipelineConfig, SolverConfig, TrackerConfig
 from velocity_tpu_torch.ops.ransac import DrawnNoise, draw_gumbel
-from velocity_tpu_torch.pipeline import anchor, speedest, step_graph, stills
+from velocity_tpu_torch.pipeline import anchor, speedest, step_graph
 from velocity_tpu_torch.pipeline.speedest import SpeedEstimator
 from velocity_tpu_torch.pipeline.stills import StillsSpeedEstimator
 from velocity_tpu_torch.pipeline.tracker import RANSAC_CALLS
@@ -138,8 +138,8 @@ def msv_once():
         return copy.deepcopy(memo[key])
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(anchor, "reanchor", reanchor)  # the driver imports it at each run
-        mp.setattr(stills, "reanchor", reanchor)
+        # the per-frame loop, the stills driver's too, imports it at each run
+        mp.setattr(anchor, "reanchor", reanchor)
         yield
 
 

@@ -23,8 +23,8 @@ from velocity_tpu.pipeline.tracker import frame_pyramids_jit as jax_frame_pyrami
 from velocity_tpu.pipeline.tracker import fused_frame_step_pyr as jax_step
 from velocity_tpu_torch.convert import state_from_numpy
 from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
-from velocity_tpu_torch.pipeline.speedest import _init_features, _init_geometry
-from velocity_tpu_torch.pipeline.tracker import fused_frame_step_pyr
+from velocity_tpu_torch.pipeline.speedest import _init_frame0, _init_geometry
+from velocity_tpu_torch.pipeline.tracker import frame_pyramids, fused_frame_step_pyr
 
 torch.set_num_threads(1)
 
@@ -40,15 +40,19 @@ def clip():
 
 
 def test_frame0_init_matches_jax(clip):
-    """Harris + subpixel corners: the same set on valid lanes (order may
-    differ on equal responses) within 1e-3 px; plate solve and plane
-    backprojection (host f64) within 1e-9 m."""
+    """The frame-0 state (``_init_frame0``): Harris + subpixel corners, the
+    same set on valid lanes (order may differ on equal responses) within
+    1e-3 px, and the solve's lanes those inside the plate box; plate solve
+    and plane backprojection (host f64) within 1e-9 m, on the port's points
+    and on JAX's; the pyramids those of the frame."""
     gray = clip.reader.grays[0]
     q = clip.annotation.q * SCALE
     est = JaxSpeedEstimator(JCFG)
     jp, jvalid, jboxa, jboxb = est._init_features(gray, q)
-    p, valid, boxa, boxb = _init_features(CFG, torch.as_tensor(gray), q)
+    f0, f0_pyr, f0_spyr = _init_frame0(CFG, clip.reader.info, torch.as_tensor(gray), q, SCALE)
+    p, valid, boxa, boxb = f0.p, f0.valid, f0.boxa, f0.boxb
     assert (boxa, boxb) == (jboxa, jboxb)
+    np.testing.assert_array_equal(f0.vp, valid & inside_bbox(p, boxa))
     np.testing.assert_array_equal(p[:4], jp[:4])
     assert valid.sum() == jvalid.sum() and valid.sum() > 40
     a, b = p[valid], jp[jvalid]
@@ -56,11 +60,18 @@ def test_frame0_init_matches_jax(clip):
     # each set lies within 1e-3 px of the other (refined corners may coincide)
     assert d.min(axis=1).max() < 1e-3 and d.min(axis=0).max() < 1e-3
 
+    jt0, jp3, jres0 = est._init_geometry(_jax_info(clip), q, p, valid, SCALE)
+    np.testing.assert_allclose(f0.t0, jt0, rtol=0, atol=1e-9)
+    np.testing.assert_allclose(f0.p3, jp3, rtol=0, atol=1e-9)
+    assert abs(f0.res0 - jres0) < 1e-6
     jt0, jp3, jres0 = est._init_geometry(_jax_info(clip), q, jp, jvalid, SCALE)
     t0, p3, res0 = _init_geometry(CFG, clip.reader.info, q, jp, jvalid, SCALE)
     np.testing.assert_allclose(t0, jt0, rtol=0, atol=1e-9)
     np.testing.assert_allclose(p3, jp3, rtol=0, atol=1e-9)
     assert abs(res0 - jres0) < 1e-6
+    pyr, spyr = frame_pyramids(torch.as_tensor(gray), CFG.tracker)
+    for a, b in zip((*f0_pyr, *f0_spyr), (*pyr, *spyr)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("lk_backend", BACKENDS)

@@ -22,7 +22,7 @@ from velocity_tpu.pipeline.speedest import SpeedEstimator as JaxSpeedEstimator
 from velocity_tpu.pipeline.tracker import ThreeStageTracker as JaxThreeStageTracker
 from velocity_tpu.pipeline.tracker import frame_pyramids_jit as jax_frame_pyramids
 from velocity_tpu_torch.convert import state_from_numpy
-from velocity_tpu_torch.pipeline import SpeedEstimator, ThreeStageTracker
+from velocity_tpu_torch.pipeline import SpeedEstimator, ThreeStageTracker, speedest
 from velocity_tpu_torch.pipeline.scan import ScanSpeedRunner
 
 torch.set_num_threads(1)
@@ -209,7 +209,8 @@ def test_replenish_matches_jax(clip, monkeypatch):
         return p_new, valid_new.copy(), None, None
 
     monkeypatch.setattr(JaxSpeedEstimator, "_init_features", harris)
-    monkeypatch.setattr(SpeedEstimator, "_init_features", harris)
+    monkeypatch.setattr(speedest, "_init_features",
+                        lambda cfg, gray, q_now: harris(None, gray, q_now))
     gray = clip.reader.grays[0]
     want = JaxSpeedEstimator(_jcfg())._replenish(gray, q, pts, vg, p3, t_abs, intr_np)
     got = SpeedEstimator(_cfg(), device="cpu")._replenish(gray, q, pts, vg, p3, t_abs, intr_np)
@@ -233,8 +234,8 @@ def test_replenish_detects_on_the_device(clip):
     est = SpeedEstimator(_cfg(), device="cpu")
     gray = clip.reader.grays[0]
     q = clip.annotation.q * SCALE
-    p, valid, _, _ = est._init_features(gray, q)
-    t0, p3, _ = est._init_geometry(clip.reader.info, q, p, valid, SCALE)
+    p, valid, _, _ = speedest._init_features(est.config, torch.as_tensor(gray), q)
+    t0, p3, _ = speedest._init_geometry(est.config, clip.reader.info, q, p, valid, SCALE)
     intr = clip.reader.info.intrinsics(scale=SCALE)
     intr_np = tuple(float(v) for v in (intr.fx, intr.fy, intr.cx, intr.cy))
     same = est._replenish(gray, q, p, valid, p3, t0, intr_np, min_live=3)

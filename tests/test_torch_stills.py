@@ -35,7 +35,7 @@ from velocity_tpu.pipeline.speedest import SpeedEstimator as JaxSpeedEstimator
 from velocity_tpu.pipeline.tracker import frame_pyramids_jit as jax_frame_pyramids
 from velocity_tpu_torch.convert import state_from_numpy
 from velocity_tpu_torch.ingest.stills import StillsReader
-from velocity_tpu_torch.pipeline import SpeedEstimator
+from velocity_tpu_torch.pipeline import SpeedEstimator, speedest
 from velocity_tpu_torch.pipeline import stills as port_stills
 from velocity_tpu_torch.pipeline.stills import StillsSpeedEstimator, open_stills
 from velocity_tpu_torch.solvers.triangulate import nray_intercept_masked_np
@@ -228,13 +228,13 @@ def test_first_replenish_matches_jax_on_equal_inputs(jax_run, monkeypatch):
     _, jrec = jax_run
     args, kwargs, want, harris = next(c for c in jrec["replenish"] if c[2][3] > 0)
     ((gray, q_now), _, detected), = harris
-    monkeypatch.setattr(SpeedEstimator, "_init_features", lambda self, g, q: detected)
+    monkeypatch.setattr(speedest, "_init_features", lambda cfg, g, q: detected)
     got = SpeedEstimator(_stills_cfg(), device="cpu")._replenish(*args, **kwargs)
     for a, b in zip(got[:3], want[:3]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-9)
     assert got[3] == want[3] > 0
     monkeypatch.undo()
-    p, valid, _, _ = SpeedEstimator(_stills_cfg(), device="cpu")._init_features(gray, q_now)
+    p, valid, _, _ = speedest._init_features(_stills_cfg(), torch.as_tensor(gray), q_now)
     a, b = p[valid], detected[0][detected[1]]
     assert len(a) == len(b)
     d = np.linalg.norm(a[:, None, :] - b[None, :, :], axis=2)

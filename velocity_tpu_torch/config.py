@@ -36,12 +36,6 @@ class TrackerConfig:
     lk_backend: str = "lanes"
     lk_coarse: LKConfig = field(default_factory=lambda: LKConfig(15, 4, 10, 0.1))
     lk_fine: LKConfig = field(default_factory=lambda: LKConfig(51, 0, 30, 0.001))
-    # Stage-2 pyramid depth override (None = follow lk_coarse.max_level, the
-    # reference structure, KLT.py:106,124). Measured: cutting stage 2 to
-    # levels {1,0} collapses survivorship below the rescue threshold on the
-    # goldens — the translation guess does NOT make the upper levels
-    # redundant — so this stays None and exists only for experiments.
-    stage2_max_level: int | None = None
     fb_threshold_coarse: float = 1.0  # stage-2 forward-backward gate (px)
     fb_threshold_fine: float = 0.3  # stage-3 forward-backward gate (px)
     min_affine_inliers: int = 10  # below this, fall back to feature matching

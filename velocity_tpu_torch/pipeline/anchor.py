@@ -179,3 +179,26 @@ def reanchor(
     p3_new = np.array(p3_base)
     p3_new[vg] = cloud[vg]
     return p3_new, t_abs, res_new
+
+
+def write_back(tables, i: int, t_abs, res_new, t, per_frame: bool = False):
+    """Put ``reanchor``'s trajectory ``t_abs`` and residuals ``res_new``
+    (either None where it kept them) into rows 0..i of the run's tables
+    (``speedest.RunTables``). ``per_frame``: the driver records ``S`` frame
+    by frame, and the rows it recorded are rewritten in the new gauge, save
+    that frame i keeps the residual, step and speed it measured before the
+    re-anchor, as in the JAX driver. Returns the translation frame i + 1
+    starts from: ``t``, or t_abs[-1] - t_abs[0] in its dtype on its device."""
+    S = tables.S
+    measured = S[i, [3, 6, 8]]
+    if res_new is not None:
+        tables.res[: i + 1] = res_new
+    if t_abs is not None:
+        tables.B[: i + 1, 0:3] = t_abs
+        tables.B[: i + 1, 3:6] = t_abs - t_abs[0]
+        if per_frame:
+            S[: i + 1, 6:9] = tables.stats(0.0, i + 1)[:, 6:9]
+        t = torch.as_tensor(t_abs[-1] - t_abs[0], dtype=t.dtype, device=t.device)
+    if per_frame:
+        S[i, [3, 6, 8]] = measured
+    return t

@@ -41,20 +41,14 @@ from velocity_tpu_torch.parallel.checkpoint import WindowState, load_state, save
 from velocity_tpu_torch.parallel.mesh import make_mesh
 from velocity_tpu_torch.parallel.windows import align_overlap, windowed_ba
 from velocity_tpu_torch.pipeline import report
-from velocity_tpu_torch.pipeline.anchor import reanchor
-from velocity_tpu_torch.pipeline.roi import inside_bbox
+from velocity_tpu_torch.pipeline.anchor import reanchor, write_back
 from velocity_tpu_torch.pipeline.scan import (
-    FrameStream, scan_segment, segment_to_host, stats_table)
+    FrameStream, record_segment, scan_segment, segment_to_host)
 from velocity_tpu_torch.pipeline.speedest import (
-    RunResult, SpeedEstimator, _init_features, open_reader, require_device, resolve_annotation)
+    RunResult, RunTables, SpeedEstimator, _init_frame0, open_reader, require_device,
+    resolve_annotation)
 from velocity_tpu_torch.pipeline.tracker import frame_pyramids
 from velocity_tpu_torch.solvers.triangulate import nray_intercept_masked_np
-
-
-def _row_generator(device, row: int) -> torch.Generator:
-    """The RANSAC generator of frame row ``row``: its draws depend on the
-    row alone, wherever the row's segment starts."""
-    return torch.Generator(device=device).manual_seed(row)
 
 
 class LongVideoRunner:
@@ -169,10 +163,8 @@ class LongVideoRunner:
             N = cfg.tracker.max_features
             msv_i = cfg.msv_frame
 
-            B = np.zeros((n, 14), np.float64)
-            S = np.zeros((n, 9), np.float64)
-            track_px = np.full((n, N, 2), np.nan, np.float32)
-            valid_hist = np.zeros((n, N), bool)
+            tables = RunTables(n, N)
+            B, S, track_px, valid_hist = tables.B, tables.S, tables.track_px, tables.valid_hist
 
             # ---- resume or frame-0 init ----
             ckpt = Path(checkpoint) if checkpoint else None
@@ -195,7 +187,6 @@ class LongVideoRunner:
                 valid_hist[i0] = vg_np
                 stream = FrameStream(vr, start + i0, n - i0, cfg.read_speed, dev)
                 base = i0
-                res0 = float(S[0, 3])
                 if state.boxes is not None:
                     boxa = tuple(int(v) for v in state.boxes[0])
                     boxb = tuple(int(v) for v in state.boxes[1])
@@ -213,16 +204,17 @@ class LongVideoRunner:
                 base = 0
             try:
                 if state is None:
-                    p_np, valid, boxa, boxb = _init_features(cfg, stream.wait(0), q)
-                    t0_np, p3_np, res0 = self._est._init_geometry(cam, q, p_np, valid, scale)
-                    vg_np = valid.copy()
-                    vp_np = valid & inside_bbox(p_np, boxa)
-                    B[0, 0:3] = t0_np
+                    f0, pyr_b, spyr_b = _init_frame0(cfg, cam, stream.wait(0), q, scale)
+                    tables.start(f0)
+                    # frame 0's residual goes into S at the run's end, as in
+                    # JAX: a checkpoint holds it only once the MSV re-solved it
+                    res0, S[0, 3] = f0.res0, 0.0
+                    p_np, vg_np, vp_np, p3_np = f0.p, f0.valid.copy(), f0.vp, f0.p3
+                    boxa, boxb = f0.boxa, f0.boxb
                     B[0, 12] = stream.times[0]
                     B[0, 13] = stream.indices[0]
-                    track_px[0, vg_np] = p_np[vg_np]
-                    valid_hist[0] = vg_np
-                pyr_b, spyr_b = frame_pyramids(stream.wait(0), cfg.tracker)
+                else:
+                    pyr_b, spyr_b = frame_pyramids(stream.wait(0), cfg.tracker)
                 pts_dev = torch.as_tensor(p_np, dtype=torch.float32, device=dev)
                 vg_dev = torch.as_tensor(vg_np, device=dev)
                 vp_dev = torch.as_tensor(vp_np, device=dev)
@@ -264,7 +256,9 @@ class LongVideoRunner:
                                               for r in range(i + 1, j + 1)])
                         carry, outs = scan_segment(
                             frames, pyr_b, spyr_b, pts_dev, vg_dev, vp_dev, t_dev, p3_dev,
-                            intr, [_row_generator(dev, r) for r in range(i + 1, j + 1)],
+                            # RANSAC at row r draws from a generator seeded r
+                            intr, [torch.Generator(device=dev).manual_seed(r)
+                                   for r in range(i + 1, j + 1)],
                             cfg.tracker, cfg.solver, sdt)
                         return carry, segment_to_host(outs)
 
@@ -287,15 +281,8 @@ class LongVideoRunner:
                         t_dev = torch.as_tensor(B[i, 0:3] - B[0, 0:3], dtype=sdt, device=dev)
                         p3_dev = torch.as_tensor(p3_np, dtype=sdt, device=dev)
                         carry, outs = _run_segment()
-                    ptsW, vgW, _vpW, tW, resW, _projW, _n2W = outs
                     pyr_b, spyr_b, pts_dev, vg_dev, vp_dev, t_dev = carry
-                    for k in range(j - i):
-                        r = i + 1 + k
-                        track_px[r, vgW[k]] = ptsW[k][vgW[k]]
-                        valid_hist[r] = vgW[k]
-                        B[r, 3:6] = tW[k]
-                        B[r, 0:3] = B[0, 0:3] + tW[k]
-                        S[r, 3] = resW[k]
+                    record_segment(i + 1, outs, tables, proj=False)
                     # timestamp/index columns fill as frames are decoded, so a
                     # checkpoint written at this boundary carries whole rows
                     B[i + 1 : j + 1, 12] = stream.times[i + 1 - base : j + 1 - base]
@@ -310,13 +297,8 @@ class LongVideoRunner:
                             cfg, cam, scale, track_px[: msv_i + 1], vg_np, B,
                             t_dev.cpu().numpy().astype(np.float64), np.array(p3_np),
                             q=np.asarray(q, np.float64))
-                        if t_abs is not None:
-                            B[: msv_i + 1, 0:3] = t_abs
-                            B[: msv_i + 1, 3:6] = t_abs - t_abs[0]
-                            t_dev = torch.as_tensor(t_abs[-1] - t_abs[0], dtype=sdt,
-                                                    device=dev)
+                        t_dev = write_back(tables, msv_i, t_abs, res_new, t_dev)
                         if res_new is not None:
-                            S[: msv_i + 1, 3] = res_new
                             res0 = float(res_new[0])
                         p3_np = p3_new
                         p3_dev = torch.as_tensor(p3_new, dtype=sdt, device=dev)
@@ -409,7 +391,7 @@ class LongVideoRunner:
         wall = time.perf_counter() - t_wall0
         if state is None:
             S[0, 3] = res0
-        S = stats_table(B, valid_hist, S[:, 3], wall / n)
+        S = tables.stats(wall / n)
         if verbose:
             print(report.header())
             for r in range(n):
@@ -418,7 +400,7 @@ class LongVideoRunner:
             print(f"Processed {n:g} images in {wall:.2f}s ({n / wall:.2f}fps)\n")
 
         return RunResult(
-            S=S, B=B, track_px=track_px, proj_px=np.full_like(track_px, np.nan),
+            S=S, B=B, track_px=track_px, proj_px=tables.proj_px,
             valid=valid_hist, plate_box=boxa, roi_box=boxb, camera=cam, config=cfg,
             first_gray=first_gray, last_gray=last_gray,
             timings={"wall_s": wall, "fps": n / wall, "windows": len(ba_meta),

@@ -5,9 +5,8 @@ Torch twin of ``velocity_tpu/pipeline/multivideo.py:run_batch``. JAX vmaps
 (``_batched_segment``); here lane ``v`` (one video) runs on
 ``mesh[v % len(mesh)]`` (or on the one ``device``), and the lanes placed on
 one mesh device run each segment as one ``scan_segment`` over a lane axis
-(``pipeline/scan.py``): one batched frame step per device per frame, whose
-XX
-host: decode and frame-0 init, then segment A (frames 1..msv), then the MSV
+(``pipeline/scan.py``): one batched frame step per device per frame. Per
+lane: decode and frame-0 init, then segment A (frames 1..msv), then the MSV
 scale transfer in f64 (it calls ``msv_refine_translation`` directly and
 moves the cloud by the lane's translation at the MSV frame; the rows before
 it keep their translations), then segment B from ``vp = vg`` at the MSV
@@ -29,13 +28,12 @@ import torch
 
 from velocity_tpu_torch.config import PipelineConfig
 from velocity_tpu_torch.geometry.projection import Intrinsics
-from velocity_tpu_torch.pipeline.roi import inside_bbox
-from velocity_tpu_torch.pipeline.scan import _decode, record_segment, scan_segment, stats_table
+from velocity_tpu_torch.pipeline.scan import _decode, record_segment, scan_segment, segment_to_host
 from velocity_tpu_torch.pipeline.speedest import (
-    F64, RunResult, SpeedEstimator, _init_features, _init_geometry, open_reader, require_device,
+    F64, RunResult, RunTables, SpeedEstimator, _init_frame0, open_reader, require_device,
     resolve_annotation)
-from velocity_tpu_torch.pipeline.tracker import frame_pyramids
 from velocity_tpu_torch.solvers.triangulate import msv_refine_translation
+
 
 def _stack(states):
     """Per-lane states (tuples of tensors or of pyramids) stacked lane-major."""
@@ -80,7 +78,7 @@ def run_batch(
     lane_dev = [devices[v % len(devices)] for v in range(V)]
 
     # ---- per-video decode + init (host; Harris on the lane's device) ----
-    frames_all, times_all, cams, inits = [], [], [], []
+    frames_all, times_all, cams, inits, pyramids = [], [], [], [], []
     for v, video in enumerate(videos):
         dev = lane_dev[v]
         ann = resolve_annotation(video, annotations[v] if annotations else None)
@@ -90,13 +88,12 @@ def run_batch(
             host, times, indices, _ = _decode(vr, start, n, cfg.read_speed,
                                               pin=dev.type == "cuda")
         frames = host.to(dev, non_blocking=True)
-        q = ann.q * scale
-        p, valid, boxa, boxb = _init_features(cfg, frames[0], q)
-        t0, p3, res0 = _init_geometry(cfg, cam, q, p, valid, scale)
         frames_all.append(frames)
         times_all.append((times, indices))
         cams.append(cam)
-        inits.append(dict(p=p, valid=valid, boxa=boxa, boxb=boxb, t0=t0, p3=p3, res0=res0))
+        f0, pyr, spyr = _init_frame0(cfg, cam, frames[0], ann.q * scale, scale)
+        inits.append(f0)
+        pyramids.append((pyr, spyr))
 
     n = min(f.shape[0] for f in frames_all)
     msv_i = cfg.msv_frame
@@ -112,18 +109,11 @@ def run_batch(
                              f"size, got {sorted(shapes)}")
     lanes = []
     for v in range(V):
-        dev, init = lane_dev[v], inits[v]
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(v)
+        start, p3_0 = inits[v].carry(sdt, lane_dev[v])
         lanes.append(dict(
-            gen=gen, intr=cams[v].intrinsics(scale=scale).to(dtype=sdt, device=dev),
-            p3_0=torch.as_tensor(init["p3"], dtype=sdt, device=dev),
-            start=(*frame_pyramids(frames_all[v][0], cfg.tracker),
-                   torch.as_tensor(init["p"], dtype=torch.float32, device=dev),
-                   torch.as_tensor(init["valid"], device=dev),
-                   torch.as_tensor(init["valid"] & inside_bbox(init["p"], init["boxa"]),
-                                   device=dev),
-                   torch.as_tensor(init["t0"], dtype=sdt, device=dev))))
+            gen=torch.Generator(device=lane_dev[v]).manual_seed(v),
+            intr=cams[v].intrinsics(scale=scale).to(dtype=sdt, device=lane_dev[v]),
+            p3_0=p3_0, start=(*pyramids[v], *start)))
 
     def segment(group, first, stop, starts, p3s):
         """Frames first..stop-1 of the group's lanes from their start states
@@ -141,40 +131,29 @@ def run_batch(
             lanes[v].update(carry=carry, outA=outs)
 
     # ---- per-video tables from segment A ----
-    B_all = np.zeros((V, n, 14))
-    track_all = np.full((V, n, N, 2), np.nan, np.float32)
-    valid_all = np.zeros((V, n, N), bool)
-    res_all = np.zeros((V, n))
-    n2_all = np.zeros((V, n))
-    tables = [(B_all[v], track_all[v], valid_all[v], res_all[v], n2_all[v]) for v in range(V)]
-
-    tA, msv_s = [], np.zeros(V)
+    tables = [RunTables(n, N).start(inits[v]) for v in range(V)]
+    msv_s = np.zeros(V)
     for v in range(V):
         times, indices = times_all[v]
-        init = inits[v]
-        B_all[v, :, 12] = times[:n]
-        B_all[v, :, 13] = indices[:n]
-        B_all[v, 0, 0:3] = init["t0"]
-        track_all[v, 0, init["valid"]] = init["p"][init["valid"]]
-        valid_all[v, 0] = init["valid"]
-        res_all[v, 0] = init["res0"]
-        tA.append(record_segment(1, lanes[v]["outA"], *tables[v]))
+        tables[v].B[:, 12] = times[:n]
+        tables[v].B[:, 13] = indices[:n]
+        record_segment(1, segment_to_host(lanes[v]["outA"]), tables[v], proj=False)
 
     if n > msv_i:
         for v in range(V):
             # ---- host MSV (f64): the cloud at the MSV frame, moved into
             # the frame-0 gauge by the lane's translation there ----
-            lane = lanes[v]
+            lane, tab = lanes[v], tables[v]
             t_m = time.perf_counter()
-            vg_msv = valid_all[v, seg_a]
+            vg_msv = tab.valid_hist[seg_a]
             msv = msv_refine_translation(
                 cams[v].intrinsics(scale=scale).to(dtype=F64),
-                torch.as_tensor(track_all[v, : msv_i + 1], dtype=F64),
+                torch.as_tensor(tab.track_px[: msv_i + 1], dtype=F64),
                 torch.as_tensor(vg_msv),
-                torch.as_tensor(B_all[v, : msv_i + 1, 0:3], dtype=F64),
+                torch.as_tensor(tab.B[: msv_i + 1, 0:3], dtype=F64),
                 config=cfg.solver,
             )
-            cloud = msv.points.numpy() - tA[v][seg_a - 1]
+            cloud = msv.points.numpy() - tab.B[seg_a, 3:6]
             p3_B = lane["p3_0"].cpu().numpy().copy()
             p3_B[vg_msv] = cloud[vg_msv]
             lane["p3_B"] = torch.as_tensor(p3_B, dtype=sdt, device=lane_dev[v])
@@ -188,12 +167,12 @@ def run_batch(
                 starts.append((pyr, spyr, pts, vg, lanes[v]["vp_B"], t_msv))
             for v, (_carry, outs) in segment(group, msv_i + 1, n, starts,
                                               [lanes[v]["p3_B"] for v in group]).items():
-                record_segment(msv_i + 1, outs, *tables[v])
+                record_segment(msv_i + 1, segment_to_host(outs), tables[v], proj=False)
 
     # ---- feature-match rescue (reference KLT.py:126-130): a lane whose
     # stage-2 survivor count collapsed anywhere is re-run through the
     # per-frame driver, which carries the host feature-match fallback ----
-    rescue = (n2_all[:, 1:] <= cfg.tracker.min_affine_inliers).any(axis=1)
+    rescue = [(tab.n2[1:] <= cfg.tracker.min_affine_inliers).any() for tab in tables]
 
     # ---- per-video tables ----
     # the lanes run as one batch: attribute wall time uniformly (reference
@@ -219,14 +198,15 @@ def run_batch(
                       f"{res_v.speed_kmh:.2f} +/- {res_v.speed_std:.2f} km/h")
             results.append(res_v)
             continue
-        S = stats_table(B_all[v], valid_all[v], res_all[v], proc)
+        tab = tables[v]
+        S = tab.stats(proc)
         if verbose:
             print(f"== {cams[v].filename}: "
                   f"{S[1:, 8].mean():.2f} +/- {S[1:, 8].std():.2f} km/h, "
                   f"res {S[1:, 3].mean():.3f} px")
         results.append(RunResult(
-            S=S, B=B_all[v], track_px=track_all[v], proj_px=np.full((n, N, 2), np.nan),
-            valid=valid_all[v], plate_box=inits[v]["boxa"], roi_box=inits[v]["boxb"],
+            S=S, B=tab.B, track_px=tab.track_px, proj_px=tab.proj_px,
+            valid=tab.valid_hist, plate_box=inits[v].boxa, roi_box=inits[v].boxb,
             camera=cams[v], config=cfg, first_gray=frames_all[v][0].cpu().numpy(),
             last_gray=frames_all[v][n - 1].cpu().numpy(),
             timings={"wall_s": wall, "msv_s": msv_s[v]},

@@ -31,13 +31,11 @@ import torch
 
 from velocity_tpu_torch.config import PipelineConfig
 from velocity_tpu_torch.pipeline import report
-from velocity_tpu_torch.pipeline.anchor import reanchor
-from velocity_tpu_torch.pipeline.roi import inside_bbox
+from velocity_tpu_torch.pipeline.anchor import reanchor, write_back
 from velocity_tpu_torch.pipeline.speedest import (
-    RunResult, SpeedEstimator, _init_features, _init_geometry, frames_available,
+    RunResult, RunTables, SpeedEstimator, _init_frame0, frames_available,
     open_reader, require_device, resolve_annotation, resolve_start)
 from velocity_tpu_torch.pipeline.step_graph import _clone, _frame, _graph_step
-from velocity_tpu_torch.pipeline.tracker import frame_pyramids
 from velocity_tpu_torch.utils import profiling
 
 
@@ -111,51 +109,33 @@ def segment_to_host(outs):
             pproj.float().cpu().numpy(), n2.cpu().numpy().astype(np.float64))
 
 
-def record_segment(first, outs, B, track_px, valid_hist, res, n2, proj_px=None):
-    """Write ``scan_segment``'s outs for frames first, first+1, ... into one
-    run's tables (numpy, written in place; ``proj_px`` where given).
-    Returns the segment's translations (k, 3)."""
-    pts_h, vg_h, vp_h, t_h, res_h, pproj_h, n2_h = segment_to_host(outs)
+def record_segment(first, host, tables: RunTables, proj: bool = True):
+    """Write ``scan_segment``'s outs for frames first, first+1, ..., read
+    to the host by ``segment_to_host``, into one run's tables (the
+    reprojections too where ``proj``)."""
+    pts_h, vg_h, vp_h, t_h, res_h, pproj_h, n2_h = host
+    B = tables.B
     for j in range(len(t_h)):
         i = first + j
-        track_px[i, vg_h[j]] = pts_h[j][vg_h[j]]
-        valid_hist[i] = vg_h[j]
-        if proj_px is not None:
-            proj_px[i, vp_h[j]] = pproj_h[j][vp_h[j]]
+        tables.record(i, pts_h[j], vg_h[j], pproj_h[j] if proj else None, vp_h[j])
         B[i, 3:6] = t_h[j]
         B[i, 0:3] = B[0, 0:3] + t_h[j]
-    res[first : first + len(t_h)] = res_h
-    n2[first : first + len(t_h)] = n2_h
-    return t_h
+    tables.res[first : first + len(t_h)] = res_h
+    tables.n2[first : first + len(t_h)] = n2_h
 
 
-def record_packed(first, packed, B, res, n2):
+def record_packed(first, packed, tables: RunTables):
     """Write a lean ``scan_segment``'s (k, 6) packed summaries for frames
-    first, first+1, ... into one run's tables (numpy, in place), in one
-    copy to the host. Returns the segment's live lanes (k,)."""
+    first, first+1, ... into one run's tables, in one copy to the host.
+    Returns the segment's live lanes (k,)."""
     p = packed.cpu().numpy().astype(np.float64)
     k = len(p)
+    B = tables.B
     B[first : first + k, 3:6] = p[:, 0:3]
     B[first : first + k, 0:3] = B[0, 0:3] + p[:, 0:3]
-    res[first : first + k] = p[:, 3]
-    n2[first : first + k] = p[:, 5]
+    tables.res[first : first + k] = p[:, 3]
+    tables.n2[first : first + k] = p[:, 5]
     return p[:, 4]
-
-
-def stats_table(B, valid_hist, res, proc: float):
-    """The run's 9-column per-frame table S from its car rows ``B``: frame,
-    processing time ``proc``, live lanes, residual, dt, time, step, distance,
-    speed (km/h)."""
-    n = B.shape[0]
-    S = np.zeros((n, 9), np.float64)
-    dist = 0.0
-    for i in range(n):
-        dt = B[i, 12] - B[i - 1, 12] if i > 0 else np.nan
-        dr = float(np.linalg.norm(B[i, 0:3] - B[i - 1, 0:3])) if i > 0 else 0.0
-        dist += dr
-        S[i] = (i, proc, valid_hist[i].sum(), res[i], dt, B[i, 12] - B[0, 12], dr, dist,
-                dr / dt * 3.6 if i > 0 and dt > 0 else np.nan)
-    return S
 
 
 def _decode(reader, start: int, n: int, step: int, pin: bool, path=None):
@@ -319,63 +299,35 @@ class ScanSpeedRunner:
         scale = cfg.native_scale
         q = ann.q * scale
         intr = cam.intrinsics(scale=scale).to(dtype=sdt, device=dev)
-        N = cfg.tracker.max_features
         msv_i = cfg.msv_frame
 
         # ---- frame 0: features on the device, geometry on the host (f64) ----
         with profiling.span("init"):
-            with profiling.span("init.features"):
-                p, valid, boxa, boxb = _init_features(cfg, frames[0], q)
-            pyr, spyr = frame_pyramids(frames[0], cfg.tracker)
-            with profiling.span("init.geometry"):
-                t0_np, p3_np, res0 = _init_geometry(cfg, cam, q, p, valid, scale)
+            f0, pyr, spyr = _init_frame0(cfg, cam, frames[0], q, scale)
         marks["init_s"] = time.perf_counter() - t_wall0
-
-        vg0 = valid.copy()
-        pts0 = torch.as_tensor(p, dtype=torch.float32, device=dev)
-        vp0 = torch.as_tensor(valid & inside_bbox(p, boxa), device=dev)
-        p3 = torch.as_tensor(p3_np, dtype=sdt, device=dev)
-        t0 = torch.as_tensor(t0_np, dtype=sdt, device=dev)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-
-        B = np.zeros((n, 14), np.float64)
-        B[:, 12] = times
-        B[:, 13] = indices
-        B[0, 0:3] = t0_np
-        track_px = np.full((n, N, 2), np.nan, np.float32)
-        proj_px = np.full((n, N, 2), np.nan, np.float32)
-        valid_hist = np.zeros((n, N), bool)
-        track_px[0, vg0] = p[vg0]
-        valid_hist[0] = vg0
-        res_all = np.zeros(n)
-        res_all[0] = res0
-        n2_all = np.zeros(n)
-        tables = (B, track_px, valid_hist, res_all, n2_all, proj_px)
+        (pts0, vg0, vp0, t0), p3 = f0.carry(sdt, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        tables = RunTables(n, cfg.tracker.max_features).start(f0)
+        tables.B[:, 12] = times
+        tables.B[:, 13] = indices
 
         # ---- segment A: frames 1..msv ----
         seg_a = min(msv_i, n - 1)
         with profiling.span("segment"):
-            carry, outs = scan_segment(frames[1 : seg_a + 1], pyr, spyr, pts0,
-                                       torch.as_tensor(vg0, device=dev), vp0, t0, p3, intr,
-                                       gen, cfg.tracker, cfg.solver, sdt)
+            carry, outs = scan_segment(frames[1 : seg_a + 1], pyr, spyr, pts0, vg0, vp0, t0,
+                                       p3, intr, gen, cfg.tracker, cfg.solver, sdt)
         with profiling.span("segment.read"):
-            record_segment(1, outs, *tables)
+            record_segment(1, segment_to_host(outs), tables)
         if n > msv_i:
             # ---- host MSV re-anchor (f64): new structure and gauge ----
             t_m = time.perf_counter()
-            vg_msv = valid_hist[msv_i]
             p3_new, t_abs, res_new = reanchor(
-                cfg, cam, scale, track_px[: msv_i + 1], vg_msv, B[: msv_i + 1],
-                B[msv_i, 3:6].copy(), np.array(p3_np), q=np.asarray(q, np.float64))
+                cfg, cam, scale, tables.track_px[: msv_i + 1], tables.valid_hist[msv_i],
+                tables.B[: msv_i + 1], tables.B[msv_i, 3:6].copy(), np.array(f0.p3),
+                q=np.asarray(q, np.float64))
             pyr, spyr, pts, vg, _vp, t_msv = carry
-            if t_abs is not None:
-                B[: msv_i + 1, 0:3] = t_abs
-                B[: msv_i + 1, 3:6] = t_abs - t_abs[0]
-                # warm-start segment B from the re-solved boundary frame
-                t_msv = torch.as_tensor(t_abs[-1] - t_abs[0], dtype=sdt, device=dev)
-            if res_new is not None:
-                res_all[: msv_i + 1] = res_new
+            # warm-start segment B from the re-solved boundary frame
+            t_msv = write_back(tables, msv_i, t_abs, res_new, t_msv)
             marks["msv_s"] = time.perf_counter() - t_m
 
             # ---- segment B: frames msv+1..n-1 ----
@@ -386,16 +338,16 @@ class ScanSpeedRunner:
                                             cfg.solver, sdt, lean=lean)
             with profiling.span("segment.read"):
                 if lean:
-                    live_b = record_packed(msv_i + 1, outs, B, res_all, n2_all)
+                    live_b = record_packed(msv_i + 1, outs, tables)
                 else:
-                    record_segment(msv_i + 1, outs, *tables)
+                    record_segment(msv_i + 1, segment_to_host(outs), tables)
         self._sync()
         wall = time.perf_counter() - t_wall0
 
         # ---- feature-match rescue: the batch loop has no host matcher, so a
         # collapse at any frame is found here and the whole clip is run again
         # through the per-frame driver, whose step carries the rescue ----
-        if n > 1 and n2_all[1:].min() <= cfg.tracker.min_affine_inliers:
+        if n > 1 and tables.n2[1:].min() <= cfg.tracker.min_affine_inliers:
             return self._est.run(video, annotation=annotation, n_frames=n_frames,
                                  start_frame=start_frame, verbose=verbose,
                                  collect_images=False, lean=lean)
@@ -403,7 +355,7 @@ class ScanSpeedRunner:
         # the segments run as one stretch of device work: wall time is
         # attributed uniformly, as in JAX (the reference prints per-frame
         # host loop time, vidExample.py:162-165)
-        S = stats_table(B, valid_hist, res_all, wall / n)
+        S = tables.stats(wall / n)
         if lean and n > msv_i + 1:
             S[msv_i + 1 :, 2] = live_b
         if verbose:
@@ -414,8 +366,8 @@ class ScanSpeedRunner:
             print(f"Processed {n:g} images in {wall:.2f}s ({n / wall:.2f}fps)\n")
 
         return RunResult(
-            S=S, B=B, track_px=track_px, proj_px=proj_px, valid=valid_hist,
-            plate_box=boxa, roi_box=boxb, camera=cam, config=cfg,
+            S=S, B=tables.B, track_px=tables.track_px, proj_px=tables.proj_px,
+            valid=tables.valid_hist, plate_box=f0.boxa, roi_box=f0.boxb, camera=cam, config=cfg,
             first_gray=host[0].numpy(), last_gray=host[n - 1].numpy(),
             timings={"wall_s": wall, "fps": n / wall, **marks},
         )

@@ -23,6 +23,11 @@ JAX runs it unjitted. On the CPU the step runs eagerly.
 protocol and hands a clip whose tracking collapsed to this driver. With
 ``lean=True`` both read one packed summary per frame after the MSV frame
 (``tracker.pack_summary``) in place of the per-point history.
+
+Every driver of the package starts from ``_init_frame0`` (frame 0's state)
+and records into ``RunTables`` (the run's tables); ``SpeedEstimator`` holds
+the one per-frame loop (``_run_frames``), which the stills driver
+(``pipeline/stills.py``) runs with its own reader and ``_after_frame``.
 """
 
 from __future__ import annotations
@@ -160,6 +165,94 @@ def _init_geometry(cfg: PipelineConfig, cam: CameraInfo, q: np.ndarray, p: np.nd
     return t0.numpy().astype(np.float64), p3, float(res0)
 
 
+@dataclass
+class Frame0:
+    """Frame 0's state on the host: the points (N, 2) f32 with the plate
+    corners in lanes 0..3, their validity, the solve's lanes ``vp`` (the
+    valid ones inside the plate box), the plate and ROI boxes, and the plate
+    geometry (f64): translation, structure and residual."""
+
+    p: np.ndarray
+    valid: np.ndarray
+    vp: np.ndarray
+    boxa: tuple
+    boxb: tuple
+    t0: np.ndarray
+    p3: np.ndarray
+    res0: float
+
+    def carry(self, sdt, device):
+        """((pts, vg, vp, t0), p3) on ``device``: the frame step's start
+        state after the pyramids, and the structure; t0 and p3 in ``sdt``."""
+        return ((torch.as_tensor(self.p, dtype=torch.float32, device=device),
+                 torch.as_tensor(self.valid, device=device),
+                 torch.as_tensor(self.vp, device=device),
+                 torch.as_tensor(self.t0, dtype=sdt, device=device)),
+                torch.as_tensor(self.p3, dtype=sdt, device=device))
+
+
+def _init_frame0(cfg: PipelineConfig, cam: CameraInfo, im, q: np.ndarray, scale: float):
+    """Frame 0's state from ``im`` (uint8 (H, W) on the device): features
+    (span ``init.features``), then the pyramids, then the geometry on the
+    host in f64 (span ``init.geometry``), so that the pyramids are queued on
+    the card before the host solve. Returns (``Frame0``, pyr, spyr)."""
+    with profiling.span("init.features"):
+        p, valid, boxa, boxb = _init_features(cfg, im, q)
+    pyr, spyr = frame_pyramids(im, cfg.tracker)
+    with profiling.span("init.geometry"):
+        t0, p3, res0 = _init_geometry(cfg, cam, q, p, valid, scale)
+    return Frame0(p, valid, valid & inside_bbox(p, boxa), boxa, boxb, t0, p3, res0), pyr, spyr
+
+
+class RunTables:
+    """One run's host tables over ``n`` frames of ``N`` lanes: the car rows
+    ``B`` (n, 14), the 9-column table ``S`` (its column 3 is the residual
+    column ``res``), the tracked and reprojected pixels (n, N, 2) f32, NaN
+    where none, the validity history and the stage-2 counts ``n2``."""
+
+    def __init__(self, n: int, N: int):
+        self.B = np.zeros((n, 14), np.float64)
+        self.S = np.zeros((n, 9), np.float64)
+        self.track_px = np.full((n, N, 2), np.nan, np.float32)
+        self.proj_px = np.full_like(self.track_px, np.nan)
+        self.valid_hist = np.zeros((n, N), bool)
+        self.n2 = np.zeros(n)
+
+    @property
+    def res(self) -> np.ndarray:
+        return self.S[:, 3]
+
+    def start(self, f0: Frame0) -> RunTables:
+        """Write frame 0's row: its translation, points and residual."""
+        self.B[0, 0:3] = f0.t0
+        self.record(0, f0.p, f0.valid)
+        self.res[0] = f0.res0
+        return self
+
+    def record(self, i: int, pts, vg, proj=None, vp=None):
+        """Frame i's points where ``vg`` (and reprojections where ``vp``)."""
+        self.track_px[i, vg] = pts[vg]
+        self.valid_hist[i] = vg
+        if proj is not None:
+            self.proj_px[i, vp] = proj[vp]
+
+    def stats(self, proc: float, rows: int | None = None) -> np.ndarray:
+        """The 9-column table of rows 0..rows-1 (all by default) from the car
+        rows: frame, processing time ``proc``, live lanes, residual, dt,
+        time, step, distance, speed (km/h)."""
+        B = self.B
+        n = len(B) if rows is None else rows
+        S = np.zeros((n, 9), np.float64)
+        dist = 0.0
+        for i in range(n):
+            dt = B[i, 12] - B[i - 1, 12] if i > 0 else np.nan
+            dr = float(np.linalg.norm(B[i, 0:3] - B[i - 1, 0:3])) if i > 0 else 0.0
+            dist += dr
+            S[i] = (i, proc, self.valid_hist[i].sum(), self.res[i], dt, B[i, 12] - B[0, 12], dr,
+                    dist, dr / dt * 3.6 if i > 0 and dt > 0 else np.nan)
+        return S
+
+
 def require_device(device, who: str) -> torch.device:
     """``device`` as a ``torch.device``; raises where it names CUDA and
     there is none (an entry point never carries on on the CPU by itself)."""
@@ -218,6 +311,24 @@ def _captured_step(im, carry, p3, intr, cfg, solver_cfg, solver_dtype):
     return _graph_step(im, carry, p3, intr, cfg, solver_cfg, solver_dtype, False)
 
 
+@dataclass
+class _LoopState:
+    """The per-frame loop's state after a frame: the step's carry (save the
+    pyramids) and the structure on the device, the host copies read of its
+    masks and points (None after the MSV frame of a lean run), and the
+    re-seeded lanes awaiting promotion (the stills driver's)."""
+
+    pts: torch.Tensor
+    vg_dev: torch.Tensor
+    vp_dev: torch.Tensor
+    t: torch.Tensor
+    p3: torch.Tensor
+    vg: np.ndarray | None
+    vp: np.ndarray | None
+    pts_host: np.ndarray | None
+    pending: np.ndarray
+
+
 class SpeedEstimator:
     """The per-frame driver, on ``device`` ("cuda" or "cpu").
 
@@ -231,17 +342,6 @@ class SpeedEstimator:
         self.config = config
         self.device = require_device(device, "SpeedEstimator")
         self.tracker = ThreeStageTracker(config.tracker, fallback_matcher)
-
-    # ------------------------------------------------------------------ init
-    def _init_features(self, gray, q: np.ndarray):
-        """Frame-0 feature detection: Harris in the plate ROI + subpixel
-        refine, on the driver's device (``gray``: a host array or a tensor)."""
-        return _init_features(self.config, torch.as_tensor(gray).to(self.device), q)
-
-    def _init_geometry(self, cam: CameraInfo, q: np.ndarray, p: np.ndarray,
-                       valid: np.ndarray, scale: float):
-        """Frame-0 geometry: plate solve + plane backprojection (host, f64)."""
-        return _init_geometry(self.config, cam, q, p, valid, scale)
 
     # ------------------------------------------------------------ replenish
     def _replenish(self, gray, q, pts, vg, p3, t_abs, intr_np, min_live: int | None = None):
@@ -263,7 +363,8 @@ class SpeedEstimator:
         if live >= min_live or live < 3:
             return pts, vg, p3, 0
         q_now = pts[0:4] if bool(vg[0:4].all()) else q
-        p_new, valid_new, _boxa, _boxb = self._init_features(gray, q_now)
+        p_new, valid_new, _boxa, _boxb = _init_features(
+            cfg, torch.as_tensor(gray).to(self.device), q_now)
         n_pl, d_pl = _fit_plane(p3, vg)
         fx, fy, cx, cy = intr_np
         dead = ~vg
@@ -350,6 +451,11 @@ class SpeedEstimator:
             return (pyr_cur, spyr_cur, p_new, vg_new, vp_new,
                     pose.t, pose.residual_rms, pose.p_proj, n2, T23)
 
+    def _after_frame(self, st: _LoopState, tables: RunTables, i: int, n: int, im, q, intr_np):
+        """The per-frame loop's work after frame i (``im``, on the device) is
+        recorded: nothing here; the stills driver re-seeds and promotes
+        lanes."""
+
     # ------------------------------------------------------------------- run
     @profiling.recorded
     def run(self, video, annotation=None, n_frames=None, start_frame=None,
@@ -362,148 +468,113 @@ class SpeedEstimator:
         five; a rescue reads what it reads); its track and reprojection
         history is not recorded (NaN, ``valid`` False). The trajectory and
         ``S[:, 2:]`` are those of ``lean=False`` where the solver is f32."""
-        from velocity_tpu_torch.pipeline.anchor import reanchor
+        cfg = self.config
+        n = n_frames if n_frames is not None else cfg.n_frames
+        ann = resolve_annotation(video, annotation)
+        start = resolve_start(cfg, ann, start_frame)
+        with open_reader(video, cfg.platform) as vr:
+            cam = vr.info
+            n = frames_available(cam, start, n, cfg.read_speed)
+            read = vr.prefetch if hasattr(vr, "prefetch") else vr.frames
+            frames = ((fr.gray, slice(12, 14), (fr.time_s, fr.index))
+                      for fr in read(start=start, count=n, step=cfg.read_speed))
+            if verbose:
+                print(f"Starting image processing on {video} ...")
+            # native-4K annotation -> this video's resolution
+            return self._run_frames(frames, cam, ann.q * cfg.native_scale, n, verbose,
+                                    collect_images, lean)
+
+    def _run_frames(self, frames, cam: CameraInfo, q, n: int, verbose: bool,
+                    collect_images: bool, lean: bool = False) -> RunResult:
+        """The per-frame drivers' loop over ``n`` ``frames``, each (gray uint8
+        (H, W) on the host, the columns of ``B`` its reader fills, their
+        values): frame 0's init, then one step a frame, the re-anchor at the
+        MSV frame and ``_after_frame``."""
+        from velocity_tpu_torch.pipeline.anchor import reanchor, write_back
 
         cfg = self.config
         dev = self.device
         sdt = F64 if cfg.solver.dtype == "float64" else torch.float32
-        n = n_frames if n_frames is not None else cfg.n_frames
-        ann = resolve_annotation(video, annotation)
-        start = resolve_start(cfg, ann, start_frame)
+        scale = cfg.native_scale
+        intr = cam.intrinsics(scale=scale).to(dtype=sdt)
+        intr_np = tuple(float(v) for v in intr[:4])  # fx, fy, cx, cy
+        intr = intr.to(device=dev)
+        tables = RunTables(n, cfg.tracker.max_features)
+        B, S = tables.B, tables.S
+        # one generator per run, drawn from in frame order, as the scan
+        # runner's: the two give the same bits where no frame is rescued
+        gen = torch.Generator(device=dev).manual_seed(0)
+        t_wall0 = time.perf_counter()
+        if verbose:
+            print(report.header())
 
-        with open_reader(video, cfg.platform) as vr:
-            cam = vr.info
-            n = frames_available(cam, start, n, cfg.read_speed)
-            scale = cfg.native_scale
-            q = ann.q * scale  # native-4K annotation -> this video's resolution
-            intr = cam.intrinsics(scale=scale).to(dtype=sdt, device=dev)
+        first_gray = last_gray = None
+        for i, (gray, cols, vals) in profiling.spans_over(enumerate(frames), "frame",
+                                                          first="init"):
+            tic = time.perf_counter()
+            B[i, cols] = vals
+            prev_gray, last_gray = last_gray, gray
+            with profiling.span("frame.upload"):
+                im = torch.as_tensor(gray).to(dev)
 
-            N = cfg.tracker.max_features
-            B = np.zeros((n, 14), np.float64)
-            S = np.zeros((n, 9), np.float64)
-            track_px = np.full((n, N, 2), np.nan, np.float32)
-            proj_px = np.full((n, N, 2), np.nan, np.float32)
-            valid_hist = np.zeros((n, N), bool)
-
-            # one generator per run, drawn from in frame order, as the scan
-            # runner's: the two give the same bits where no frame is rescued
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(0)
-            t_wall0 = time.perf_counter()
-            if verbose:
-                print(f"Starting image processing on {video} ...")
-                print(report.header())
-
-            read = vr.prefetch if hasattr(vr, "prefetch") else vr.frames
-            first_gray = last_gray = None
-            frames = enumerate(read(start=start, count=n, step=cfg.read_speed))
-            for i, fr in profiling.spans_over(frames, "frame", first="init"):
-                tic = time.perf_counter()
-                B[i, 12] = fr.time_s
-                B[i, 13] = fr.index
-                gray = fr.gray
-                prev_gray = last_gray
-                last_gray = gray
-                with profiling.span("frame.upload"):
-                    im_dev = torch.as_tensor(gray).to(dev)
-
-                if i == 0:
-                    first_gray = gray if collect_images else None
-                    with profiling.span("init.features"):
-                        p, valid, boxa, boxb = self._init_features(im_dev, q)
-                    pyr_prev, spyr_prev = frame_pyramids(im_dev, cfg.tracker)
-                    with profiling.span("init.geometry"):
-                        t_np, p3_np, res0 = self._init_geometry(cam, q, p, valid, scale)
-                    t = torch.as_tensor(t_np, dtype=sdt, device=dev)
-                    p3 = torch.as_tensor(p3_np, dtype=sdt, device=dev)
-                    residuals = res0
-                    B[0, 0:3] = t_np
-                    vg = valid.copy()
-                    vp = valid & inside_bbox(p, boxa)
-                    pts_dev = torch.as_tensor(p, dtype=torch.float32, device=dev)
-                    vg_dev = torch.as_tensor(vg, device=dev)
-                    vp_dev = torch.as_tensor(vp, device=dev)
-                    dt = np.nan
-                    dr = 0.0
-                    dist = 0.0
-                    t0_time = B[0, 12]
-                    p_proj_frame = None
+            if i == 0:
+                first_gray = gray if collect_images else None
+                f0, pyr, spyr = _init_frame0(cfg, cam, im, q, scale)
+                tables.start(f0)
+                carry, p3 = f0.carry(sdt, dev)
+                st = _LoopState(*carry, p3, vg=f0.valid.copy(), vp=f0.vp, pts_host=f0.p,
+                                pending=np.zeros(len(f0.p), bool))
+                residual, n_tracks, dt, dr, dist = f0.res0, float(f0.valid.sum()), np.nan, 0.0, 0.0
+            else:
+                (pyr, spyr, st.pts, st.vg_dev, st.vp_dev,
+                 st.t, res_dev, pproj, n2, _T23) = self._frame_step_with_fallback(
+                    pyr, spyr, im, st.pts, st.vg_dev, st.vp_dev,
+                    st.p3, intr, gen, sdt, prev_gray, gray, st.t)
+                if lean and i > cfg.msv_frame:
+                    packed = pack_summary(st.t, res_dev, st.vg_dev, n2).cpu().numpy()
+                    packed = packed.astype(np.float64)
+                    tnp, residual, n_tracks = packed[0:3], packed[3], packed[4]
+                    st.vg = st.vp = None
                 else:
-                    (pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev,
-                     t, residuals, pproj_dev, n2, _T23) = self._frame_step_with_fallback(
-                        pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
-                        p3, intr, gen, sdt, prev_gray, gray, t)
-                    if lean and i > cfg.msv_frame:
-                        packed = pack_summary(t, residuals, vg_dev, n2).cpu().numpy()
-                        packed = packed.astype(np.float64)
-                        tnp, residuals, n_tracks = packed[0:3], packed[3], packed[4]
-                        vg = vp = p_proj_frame = None
-                    else:
-                        vg = vg_dev.cpu().numpy()
-                        vp = vp_dev.cpu().numpy()
-                        p_proj_frame = pproj_dev.float().cpu().numpy()
-                        tnp = t.cpu().numpy().astype(np.float64)
+                    st.vg = st.vg_dev.cpu().numpy()
+                    st.vp = st.vp_dev.cpu().numpy()
+                    proj = pproj.float().cpu().numpy()
+                    tnp = st.t.cpu().numpy().astype(np.float64)
+                    st.pts_host = st.pts.cpu().numpy()
+                    tables.record(i, st.pts_host, st.vg, proj, st.vp)
+                    residual, n_tracks = res_dev, float(st.vg.sum())
+                dt = B[i, 12] - B[i - 1, 12]
+                dr = float(np.linalg.norm(tnp + B[0, 0:3] - B[i - 1, 0:3]))
+                dist = S[i - 1, 7] + dr
+                B[i, 3:6] = tnp
+                B[i, 0:3] = B[0, 0:3] + tnp
+            S[i] = (i, 0.0, n_tracks, float(residual), dt, B[i, 12] - B[0, 12], dr, dist,
+                    dr / dt * 3.6 if np.isfinite(dt) and dt > 0 else np.nan)
 
-                    dt = B[i, 12] - B[i - 1, 12]
-                    dr = float(np.linalg.norm(tnp + B[0, 0:3] - B[i - 1, 0:3]))
-                    dist += dr
-                    B[i, 3:6] = tnp
-                    B[i, 0:3] = B[0, 0:3] + tnp
-
-                if vg is not None:  # not in a lean run's steady state
-                    track_px[i, vg] = pts_dev.cpu().numpy()[vg]
-                    valid_hist[i] = vg
-                    n_tracks = float(vg.sum())
-                    if p_proj_frame is not None:
-                        proj_px[i, vp] = p_proj_frame[vp]
-
-                if i == cfg.msv_frame:
-                    # scale transfer (once per video; host f64, see anchor.py)
-                    p3_new, t_abs, res_new = reanchor(
-                        cfg, cam, scale, track_px[: i + 1], vg, B,
-                        t.cpu().numpy().astype(np.float64), p3.cpu().numpy(),
-                        q=np.asarray(q, np.float64))
-                    p3 = torch.as_tensor(p3_new, dtype=sdt, device=dev)
-                    if t_abs is not None:  # the anchor re-solved the trajectory
-                        B[: i + 1, 0:3] = t_abs
-                        B[: i + 1, 3:6] = t_abs - t_abs[0]
-                        t = torch.as_tensor(t_abs[-1] - t_abs[0], dtype=sdt, device=dev)
-                        # rewrite the rows already recorded in the new gauge;
-                        # this frame's own row below keeps the step it
-                        # measured before the re-anchor, as in the JAX driver
-                        dist = 0.0
-                        for r in range(i + 1):
-                            drr = (float(np.linalg.norm(B[r, 0:3] - B[r - 1, 0:3]))
-                                   if r > 0 else 0.0)
-                            dist += drr
-                            S[r, 6] = drr
-                            S[r, 7] = dist
-                            dtr = S[r, 4]
-                            S[r, 8] = (drr / dtr * 3.6
-                                       if r > 0 and np.isfinite(dtr) and dtr > 0 else np.nan)
-                            if res_new is not None:
-                                S[r, 3] = res_new[r]
-                    vp = vg.copy()
-                    vp_dev = torch.as_tensor(vp, device=dev)
-
-                S[i, :] = (
-                    i, time.perf_counter() - tic, n_tracks, float(residuals), dt,
-                    B[i, 12] - t0_time, dr, dist,
-                    dr / dt * 3.6 if np.isfinite(dt) and dt > 0 else np.nan,
-                )
-                if verbose:
-                    print(report.row(S[i]))
-
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            wall = time.perf_counter() - t_wall0
+            if i == cfg.msv_frame:
+                # scale transfer (once per video; host f64, see anchor.py)
+                p3_new, t_abs, res_new = reanchor(
+                    cfg, cam, scale, tables.track_px[: i + 1], st.vg, B,
+                    st.t.cpu().numpy().astype(np.float64),
+                    st.p3.cpu().numpy().astype(np.float64), q=np.asarray(q, np.float64))
+                st.p3 = torch.as_tensor(p3_new, dtype=sdt, device=dev)
+                st.t = write_back(tables, i, t_abs, res_new, st.t, per_frame=True)
+                st.vp = st.vg.copy()
+                st.vp_dev = torch.as_tensor(st.vp, device=dev)
+            S[i, 1] = time.perf_counter() - tic
             if verbose:
-                print(report.summary(S))
-                print(f"Processed {n:g} images in {wall:.2f}s ({n / wall:.2f}fps)\n")
+                print(report.row(S[i]))
+            self._after_frame(st, tables, i, n, im, q, intr_np)
 
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t_wall0
+        if verbose:
+            print(report.summary(S))
+            print(f"Processed {n:g} images in {wall:.2f}s ({n / wall:.2f}fps)\n")
         return RunResult(
-            S=S, B=B, track_px=track_px, proj_px=proj_px, valid=valid_hist,
-            plate_box=boxa, roi_box=boxb, camera=cam, config=cfg,
+            S=S, B=B, track_px=tables.track_px, proj_px=tables.proj_px, valid=tables.valid_hist,
+            plate_box=f0.boxa, roi_box=f0.boxb, camera=cam, config=cfg,
             first_gray=first_gray, last_gray=last_gray if collect_images else None,
             timings={"wall_s": wall, "fps": n / wall},
         )

@@ -5,8 +5,9 @@ extra, runExample.m:156-159).
 Torch twin of ``velocity_tpu/pipeline/stills.py``. Timing comes from EXIF
 DateTimeOriginal + SubSecTimeOriginal per image; the camera track is
 georegistered to ECEF/NED about the first image's GPS fix. The loop is the
-per-frame driver's (``pipeline/speedest.py``) with two additions for the
-wide-baseline burst: dead lanes are re-seeded on every frame from the MSV
+per-frame driver's (``SpeedEstimator._run_frames`` in
+``pipeline/speedest.py``); after each frame (``_after_frame``) come two
+additions for the wide-baseline burst: dead lanes are re-seeded on every frame from the MSV
 frame on (``SpeedEstimator._replenish``), and a re-seeded lane joins the
 pose solve once N-ray triangulation from real baseline places it inside a
 plausible depth band (``_promote_pending``).
@@ -15,18 +16,13 @@ plausible depth band (``_promote_pending``).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
 
 from velocity_tpu_torch.config import PipelineConfig
 from velocity_tpu_torch.geometry.geodesy import ecef_to_lla, ecef_to_ned, lla_to_ecef, ned_to_ecef
-from velocity_tpu_torch.pipeline import report
-from velocity_tpu_torch.pipeline.anchor import reanchor
-from velocity_tpu_torch.pipeline.roi import inside_bbox
-from velocity_tpu_torch.pipeline.speedest import F64, RunResult, SpeedEstimator, resolve_annotation
-from velocity_tpu_torch.pipeline.tracker import frame_pyramids
+from velocity_tpu_torch.pipeline.speedest import RunResult, SpeedEstimator, resolve_annotation
 from velocity_tpu_torch.solvers.triangulate import nray_intercept_masked_np
 from velocity_tpu_torch.utils import profiling
 
@@ -40,6 +36,14 @@ def open_stills(images, platform: str):
     from velocity_tpu_torch.ingest.stills import StillsReader
 
     return StillsReader(images, platform)
+
+
+def _still_row(item):
+    """A still of ``open_stills``'s reader as the per-frame loop takes it:
+    (gray, columns of ``B``, values): its EXIF GPS fix and time (9:13)
+    where it has them, and its index (13)."""
+    i, gray, llat = item
+    return (gray, slice(9, 14), (*llat, i)) if llat is not None else (gray, slice(13, 14), (i,))
 
 
 class StillsSpeedEstimator(SpeedEstimator):
@@ -80,176 +84,55 @@ class StillsSpeedEstimator(SpeedEstimator):
         p3[promote] = p3_tri[promote]
         return p3, vp | promote, pending & ~promote, int(promote.sum())
 
+    def _after_frame(self, st, tables, i, n, im, q, intr_np):
+        """Replenish after the scale transfer: the ~2 m/frame burst baseline
+        sheds tracks far faster than video. New lanes are tracked at once
+        but join the pose solve (vp) only after N-ray triangulation from
+        real baseline: the plane-seeded depth is provisional, and
+        static-background corners seeded at car depth would drag the solve
+        toward zero motion."""
+        cfg = self.config
+        dev = self.device
+        if cfg.msv_frame <= i < n - 1:
+            with profiling.span("replenish"):
+                p_r, vg_r, p3_r, n_new = self._replenish(
+                    im, q, st.pts_host, st.vg, st.p3.cpu().numpy().astype(np.float64),
+                    st.t.cpu().numpy().astype(np.float64), intr_np)
+            if n_new:
+                st.pending |= vg_r & ~st.vg
+                st.vg = vg_r
+                st.pts = torch.as_tensor(p_r, dtype=torch.float32, device=dev)
+                st.vg_dev = torch.as_tensor(st.vg, device=dev)
+                st.p3 = torch.as_tensor(p3_r, dtype=st.p3.dtype, device=dev)
+                tables.record(i, p_r, st.vg)
+        st.pending &= st.vg
+        if i > cfg.msv_frame and st.pending.any():
+            with profiling.span("promote"):
+                p3_np, st.vp, st.pending, n_prom = self._promote_pending(
+                    intr_np, tables.track_px, tables.B, tables.valid_hist, st.pending,
+                    st.p3.cpu().numpy().astype(np.float64),
+                    st.t.cpu().numpy().astype(np.float64), st.vp, i)
+            if n_prom:
+                st.p3 = torch.as_tensor(p3_np, dtype=st.p3.dtype, device=dev)
+                st.vp_dev = torch.as_tensor(st.vp, device=dev)
+
     @profiling.recorded
     def run(self, images, annotation=None, verbose: bool = True, collect_images: bool = True,
             georegister: bool = True) -> RunResult:
         """Run the pipeline over ``images``: a list of still paths or a
         reader (see ``open_stills``)."""
         cfg = self.config
-        dev = self.device
-        sdt = F64 if cfg.solver.dtype == "float64" else torch.float32
-
         reader = open_stills(images, cfg.platform)
-        cam = reader.info
         ann = resolve_annotation(reader.paths[0], annotation)
-        scale = cfg.native_scale
-        q = ann.q * scale
-        intr = cam.intrinsics(scale=scale).to(dtype=sdt, device=dev)
-        intr_np = tuple(float(v) for v in (intr.fx, intr.fy, intr.cx, intr.cy))
         n = len(reader.paths)
-        N = cfg.tracker.max_features
-
-        B = np.zeros((n, 14), np.float64)
-        S = np.zeros((n, 9), np.float64)
-        track_px = np.full((n, N, 2), np.nan, np.float32)
-        proj_px = np.full((n, N, 2), np.nan, np.float32)
-        valid_hist = np.zeros((n, N), bool)
-
-        pending = np.zeros(N, bool)  # replenished lanes awaiting triangulation
-        # one generator per run, drawn from in frame order, as the driver's
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(0)
-        t_wall0 = time.perf_counter()
         if verbose:
             print(f"Starting image processing on {n} stills ...")
-            print(report.header())
-
-        first_gray = last_gray = None
-        for i, gray, llat in profiling.spans_over(reader.frames(), "frame", first="init"):
-            tic = time.perf_counter()
-            if llat is not None:
-                B[i, 9:13] = llat
-            B[i, 13] = i
-            prev_gray = last_gray
-            last_gray = gray
-            with profiling.span("frame.upload"):
-                im_dev = torch.as_tensor(gray).to(dev)
-
-            if i == 0:
-                first_gray = gray if collect_images else None
-                with profiling.span("init.features"):
-                    p, valid, boxa, boxb = self._init_features(im_dev, q)
-                pyr_prev, spyr_prev = frame_pyramids(im_dev, cfg.tracker)
-                with profiling.span("init.geometry"):
-                    t_np, p3_np, res0 = self._init_geometry(cam, q, p, valid, scale)
-                t = torch.as_tensor(t_np, dtype=sdt, device=dev)
-                p3 = torch.as_tensor(p3_np, dtype=sdt, device=dev)
-                residuals = res0
-                B[0, 0:3] = t_np
-                vg = valid.copy()
-                vp = valid & inside_bbox(p, boxa)
-                pts_dev = torch.as_tensor(p, dtype=torch.float32, device=dev)
-                vg_dev = torch.as_tensor(vg, device=dev)
-                vp_dev = torch.as_tensor(vp, device=dev)
-                dt = np.nan
-                dr = 0.0
-                dist = 0.0
-                t0_time = B[0, 12]
-                p_proj_frame = None
-            else:
-                (pyr_prev, spyr_prev, pts_dev, vg_dev, vp_dev,
-                 t, residuals, pproj_dev, _n2, _T23) = self._frame_step_with_fallback(
-                    pyr_prev, spyr_prev, im_dev, pts_dev, vg_dev, vp_dev,
-                    p3, intr, gen, sdt, prev_gray, gray, t)
-                vg = vg_dev.cpu().numpy()
-                vp = vp_dev.cpu().numpy()
-                p_proj_frame = pproj_dev.float().cpu().numpy()
-
-                dt = B[i, 12] - B[i - 1, 12]
-                tnp = t.cpu().numpy().astype(np.float64)
-                dr = float(np.linalg.norm(tnp + B[0, 0:3] - B[i - 1, 0:3]))
-                dist += dr
-                B[i, 3:6] = tnp
-                B[i, 0:3] = B[0, 0:3] + tnp
-
-            pnp = pts_dev.cpu().numpy()
-            track_px[i, vg] = pnp[vg]
-            valid_hist[i] = vg
-            if p_proj_frame is not None:
-                proj_px[i, vp] = p_proj_frame[vp]
-
-            if i == cfg.msv_frame:
-                p3_new, t_abs, res_new = reanchor(
-                    cfg, cam, scale, track_px[: i + 1], vg, B,
-                    t.cpu().numpy().astype(np.float64), p3.cpu().numpy().astype(np.float64),
-                    q=np.asarray(q, np.float64))
-                if t_abs is not None:
-                    B[: i + 1, 0:3] = t_abs
-                    B[: i + 1, 3:6] = t_abs - t_abs[0]
-                    t = torch.as_tensor(t_abs[-1] - t_abs[0], dtype=sdt, device=dev)
-                    # rewrite the rows already recorded in the new gauge;
-                    # this frame's own row below keeps the step it measured
-                    # before the re-anchor, as in the JAX driver
-                    dist = 0.0
-                    for r in range(i + 1):
-                        drr = (float(np.linalg.norm(B[r, 0:3] - B[r - 1, 0:3]))
-                               if r > 0 else 0.0)
-                        dist += drr
-                        S[r, 6] = drr
-                        S[r, 7] = dist
-                        dtr = S[r, 4]
-                        S[r, 8] = (drr / dtr * 3.6
-                                   if r > 0 and np.isfinite(dtr) and dtr > 0 else np.nan)
-                        if res_new is not None:
-                            S[r, 3] = res_new[r]
-                p3 = torch.as_tensor(p3_new, dtype=sdt, device=dev)
-                vp = vg.copy()
-                vp_dev = torch.as_tensor(vp, device=dev)
-
-            S[i, :] = (
-                i, time.perf_counter() - tic, float(vg.sum()), float(residuals), dt,
-                B[i, 12] - t0_time, dr, dist,
-                dr / dt * 3.6 if np.isfinite(dt) and dt > 0 else np.nan,
-            )
-            if verbose:
-                print(report.row(S[i]))
-
-            # replenish after the scale transfer: the ~2 m/frame burst
-            # baseline sheds tracks far faster than video. New lanes are
-            # tracked at once but join the pose solve (vp) only after N-ray
-            # triangulation from real baseline: the plane-seeded depth is
-            # provisional, and static-background corners seeded at car depth
-            # would drag the solve toward zero motion.
-            if cfg.msv_frame <= i < n - 1:
-                with profiling.span("replenish"):
-                    p_r, vg_r, p3_r, n_new = self._replenish(
-                        im_dev, q, pnp, vg, p3.cpu().numpy().astype(np.float64),
-                        t.cpu().numpy().astype(np.float64), intr_np)
-                if n_new:
-                    pending |= vg_r & ~vg
-                    vg = vg_r
-                    pts_dev = torch.as_tensor(p_r, dtype=torch.float32, device=dev)
-                    vg_dev = torch.as_tensor(vg, device=dev)
-                    p3 = torch.as_tensor(p3_r, dtype=sdt, device=dev)
-                    track_px[i, vg] = p_r[vg]
-                    valid_hist[i] = vg
-            pending &= vg
-            if i > cfg.msv_frame and pending.any():
-                with profiling.span("promote"):
-                    p3_np2, vp, pending, n_prom = self._promote_pending(
-                        intr_np, track_px, B, valid_hist, pending,
-                        p3.cpu().numpy().astype(np.float64), t.cpu().numpy().astype(np.float64),
-                        vp, i)
-                if n_prom:
-                    p3 = torch.as_tensor(p3_np2, dtype=sdt, device=dev)
-                    vp_dev = torch.as_tensor(vp, device=dev)
-
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t_wall0
-        if georegister and np.any(B[:, 9] != 0):
+        res = self._run_frames(map(_still_row, reader.frames()), reader.info,
+                               ann.q * cfg.native_scale, n, verbose, collect_images)
+        if georegister and np.any(res.B[:, 9] != 0):
             with profiling.span("georegister"):
-                georegister_track(B, yaw_deg=reader.yaw_deg(0))
-        if verbose:
-            print(report.summary(S))
-            print(f"Processed {n:g} images in {wall:.2f}s ({n / wall:.2f}fps)\n")
-
-        return RunResult(
-            S=S, B=B, track_px=track_px, proj_px=proj_px, valid=valid_hist,
-            plate_box=boxa, roi_box=boxb, camera=cam, config=cfg,
-            first_gray=first_gray, last_gray=last_gray if collect_images else None,
-            timings={"wall_s": wall, "fps": n / wall},
-        )
+                georegister_track(res.B, yaw_deg=reader.yaw_deg(0))
+        return res
 
 
 def georegister_track(B: np.ndarray, yaw_deg: float | None = None):

@@ -155,7 +155,10 @@ def _track_stages_p(pyr_prev, pyr_cur, spyr_prev, spyr_cur, pts, valid,
     n1 = torch.clamp(torch.sum(v1, dim=-1), min=1)
     mean_shift = torch.sum((p1 - pts) * m1, dim=-2) / n1[..., None]
     shift_int = torch.trunc(mean_shift)
-    lvl2 = cfg.stage2_max_level if cfg.stage2_max_level is not None else lk1.max_level
+    # stage 2 keeps lk_coarse's pyramid depth (the reference structure,
+    # KLT.py:106,124): the translation guess does not make its upper levels
+    # redundant
+    lvl2 = lk1.max_level
     r2 = lk_fb(
         pyr_prev[0].to(dtype), pyr_cur[0].to(dtype), pts.reshape(-1, 2),
         guess=(pts + shift_int[..., None, :]).reshape(-1, 2),
