@@ -14,7 +14,10 @@ its launch floor, the same call at size 1; K4, ``corner_subpix``'s loop,
 on the 1,020 corners frame-0 init refines on the clip's first frame; K5,
 stage 3's warped windows, bit for bit on the clip's first frame with a
 shared map, the backward leg's transposed centres and per-point maps on a
-stack of three frames), then
+stack of three frames; K6, each level's LK source window, on the clip's
+first frame at the three shapes of a lanes step and on a stack of three
+frames: windows bit for bit, the structure tensor's sums within 1e-5 of
+its trace, the gate equal away from its thresholds), then
 drives the paths below on a 1920x1080, 20-frame synthetic clip with the default
 widths (1024 features, 1024 RANSAC trials) and the f32 solver:
 
@@ -202,12 +205,20 @@ K1_CONFIGS = ((15, 24, 8, False), (51, 64, 10, True), (51, 64, 8, False))
 K4_ATOL_PX, K4_SAME_ITERS = 2e-3, 0.99
 # K5 (stage 3's warped windows) at win 51: P 64 (Q 72), anchor offset 29
 K5_P, K5_OO = 64, 29
+# K6 (the LK source window of a level): (label, level of the frame's
+# pyramid, win, cubic) of a lanes step's shapes, stages 1-2 at the frame and
+# at its top level, stage 3's two legs; N_POINTS points, the step's min-eig
+# threshold. The sums (a11, a12, a22) against the plain version's within
+# K6_RTOL of the trace: their order differs, the windows are bit-equal.
+K6_CASES = (("win 15 level 0", 0, 15, False), ("win 15 level 4", 4, 15, False),
+            ("win 51 level 0", 0, 51, False), ("win 51 cubic level 0", 0, 51, True))
+K6_THRESH, K6_RTOL = 1e-4, 1e-5
 K1_RTOL, K1_ATOL = 1e-5, 1e-4  # summation order and FMA contraction differ
 # Functions (module of velocity_tpu_torch.ops, name) whose device time each
 # path's profiled run reports: where JAX leaves the work to XLA, K5 (the
-# whole of _extract_warped_lanes on a card) and the eager PyTorch stencils
-ANNOTATED = {"lanes": ("lk_lanes._extract_warped_lanes", "lk_lanes._sample_taps",
-                       "lk_lanes._grad_xy"),
+# whole of _extract_warped_lanes on a card; K6, the source windows, is read
+# by its kernels' name, since its wrapper carries its counters)
+ANNOTATED = {"lanes": ("lk_lanes._extract_warped_lanes",),
              "fast": ("lk_fast._extract_warped",)}
 # K1 edge cases (kind, win, P, n_taps, cubic, N): point counts that leave a
 # block's warps part-filled, every point done, windows outside the two
@@ -242,7 +253,8 @@ def phase_device():
 
 def _kernel_name(mangled: str) -> str:
     """``lk_block_point<cubic, cached>`` for the mangled name of a K1
-    instantiation, ``gather_windows<128, 4, split>`` for the window gather
+    instantiation, ``source_window_warp<linear>`` for one of K6's,
+    ``gather_windows<128, 4, split>`` for the window gather
     of K2 and K3 (threads per block, words per thread and step, whether a
     thread's words may run into the next row); other kernels keep their
     mangled name."""
@@ -251,6 +263,8 @@ def _kernel_name(mangled: str) -> str:
         args = ["cubic" if flags[0] == "1" else "linear"]
         args += ["cached" if f == "1" else "uncached" for f in flags[1:]]
         return f"{m[1]}<{', '.join(args)}>"
+    if m := re.search(r"(source_window_[a-z]+)ILb([01])E", mangled):
+        return f"{m[1]}<{'cubic' if m[2] == '1' else 'linear'}>"
     if m := re.search(r"gather_windowsILi(\d+)ELi(\d+)ELb([01])E", mangled):
         return f"gather_windows<{m[1]}, {m[2]}{', split' if m[3] == '1' else ''}>"
     return mangled
@@ -275,8 +289,8 @@ def phase_build():
     """Build the kernels; print each entry function's registers and spills.
     Fails unless the six K1 instantiations (the warp kernel, the block
     kernel with cached and with uncached gradients, each linear and cubic)
-    compiled without spills, or if a window gather instantiation or K5
-    spills."""
+    compiled without spills, or if a window gather instantiation, K5 or
+    one of K6's four (warp or block, linear or cubic) spills."""
     from velocity_tpu_torch import cuda_build
 
     t0 = time.perf_counter()
@@ -293,10 +307,13 @@ def phase_build():
     k1 = [r for r in rows if r[0].startswith("lk_block")]
     if len(k1) != 6 or any(st or ld for _, _, st, ld in k1):
         raise AssertionError(f"K1 instantiations with spills, or not six: {k1}")
-    spilled = [r for r in rows if (r[0].startswith("gather_windows") or "warp_window" in r[0])
-               and (r[2] or r[3])]
+    spilled = [r for r in rows if (r[0].startswith("gather_windows") or "warp_window" in r[0]
+                                   or "source_window" in r[0]) and (r[2] or r[3])]
     if spilled:
-        raise AssertionError(f"window gather or K5 instantiations with spills: {spilled}")
+        raise AssertionError(f"window gather, K5 or K6 instantiations with spills: {spilled}")
+    k6 = [r for r in rows if "source_window" in r[0]]
+    if len(k6) != 4:
+        raise AssertionError(f"K6 instantiations: {k6}, not four")
 
 
 def _gather_check(label, fn, ref, img, corners, size):
@@ -716,6 +733,123 @@ def phase_k5(dev, clip):
     return rows
 
 
+def _k6_bound_ms(N: int, win: int, cubic: bool):
+    """Bound of one K6 call: Ip, gx and gy (3 N win^2 float32), four floats
+    and a flag a point written once (``k6_roofline``'s bytes; the slabs it
+    reads overlap and sit in L2), or its operations: a product and a sum a
+    tap of the three x-passes (S rows) and y-passes, S = win + taps - 1, and
+    the gradients' smoothings and differences."""
+    K = 7 if cubic else 4
+    S = win + K - 1
+    ops = 2 * K * 3 * (S * win + win * win) + 5 * 2 * S * (S + 1) + 2 * 2 * S * S
+    return bound_ms(4 * N * (3 * win * win + 4) + N, N * ops)
+
+
+def _kernel_ms(fn, name: str, calls: int = 10) -> float:
+    """Device milliseconds a call of the kernels whose name holds ``name``,
+    from a ``torch.profiler`` trace of ``calls`` calls of ``fn`` (warm)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    return us / 1e3 / calls
+
+
+def _k6_check(label, got, want, win):
+    """K6's results against the plain version's: Ip, gx and gy bit-equal;
+    a11, a12, a22 within K6_RTOL of the trace; trackable equal but on the
+    points whose min_eig or det lies within that margin of its threshold.
+    Returns (largest sum error over the trace, points near a gate)."""
+    for name, g, w in zip(("Ip", "gx", "gy"), got[:3], want[:3]):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            raise AssertionError(f"K6 {label}: {name} not bit-equal to the plain version, max "
+                                 f"abs err {float((g - w).abs().nan_to_num().max())}")
+    g11, g12, g22 = (t.double() for t in got[3:6])
+    w11, w12, w22 = (t.double() for t in want[3:6])
+    tr = w11.abs() + w22.abs()
+    err = max(float(((g - w).abs() / tr.clamp_min(1e-30)).max())
+              for g, w in ((g11, w11), (g12, w12), (g22, w22)))
+    if not err <= K6_RTOL:
+        raise AssertionError(f"K6 {label}: a sum off by {err:.3g} of the trace")
+    det = w11 * w22 - w12 * w12
+    size = (w11 * w22).abs() + w12 * w12
+    min_eig = (tr - torch.sqrt((w11 - w22) ** 2 + 4 * w12 * w12)) * 0.5 / win ** 2
+    near = (((min_eig - K6_THRESH * 1024.0).abs() <= 2 * K6_RTOL * tr / win ** 2)
+            | ((det - 16 * torch.finfo(torch.float32).tiny).abs() <= 4 * K6_RTOL * size))
+    if not torch.equal(got[7][~near], want[7][~near]):
+        raise AssertionError(f"K6 {label}: trackable differs away from the gates' thresholds")
+    return err, int(near.sum())
+
+
+def phase_k6(dev, clip):
+    """K6 (the LK source window of a level, ``csrc/source_window.cu``)
+    against its plain version on the card: on the clip's first frame at the
+    shapes of a lanes step (``K6_CASES``: win 15 at the frame and its top
+    level, win 51 at the frame, linear and, on K5's patch through a shared
+    map, cubic), then on a stack of SLAB_LANES frames (``run_batch``'s
+    lanes: win 15, and win 51 cubic with a map a lane). Each call one K6
+    launch (and one K5 where cubic), no K2; Ip, gx and gy bit-equal, the
+    sums within K6_RTOL (``_k6_check``). Then K6's kernel time (a profiled
+    trace, its kernels alone), the call's (the level's edge pad, K5 where
+    cubic, K6), the plain version's and the bound."""
+    from velocity_tpu_torch.ops import launches, lk_lanes
+    from velocity_tpu_torch.ops.pyramid import build_pyramid
+
+    frame = torch.as_tensor(clip.reader.grays[0]).to(dev).float()
+    stack = torch.stack([torch.as_tensor(clip.reader.grays[i]).to(dev).float()
+                         for i in range(SLAB_LANES)])
+    g = np.random.default_rng(6)
+    H, W = frame.shape
+    M = torch.tensor([[1.012, 0.021, 3.4], [-0.017, 0.991, -1.2]], device=dev)
+    cases = []
+    for label, level, win, cubic in K6_CASES:
+        pts = np.stack([g.uniform(0, W, N_POINTS), g.uniform(0, H, N_POINTS)], 1)
+        p_l = torch.as_tensor(pts.astype(np.float32), device=dev).T * (1.0 / (1 << level))
+        cases.append((label, build_pyramid(frame, level)[level], p_l, win, M if cubic else None))
+    n = N_POINTS - N_POINTS % SLAB_LANES
+    for label, win, cubic in (("stack win 15", 15, False), ("stack win 51 cubic", 51, True)):
+        pts = np.stack([g.uniform(0, W, n), g.uniform(0, H, n)], 1)
+        maps = np.eye(2, 3) + g.normal(0, [[0.02, 0.02, 2.0]] * 2, (SLAB_LANES, 2, 3))
+        Ms = torch.as_tensor(maps.astype(np.float32), device=dev).repeat_interleave(
+            n // SLAB_LANES, 0) if cubic else None
+        cases.append((label, stack, torch.as_tensor(pts.astype(np.float32), device=dev).T, win,
+                      Ms))
+    rows = []
+    for label, img, p_l, win, Ms in cases:
+        args = (img, p_l, win, K6_THRESH, Ms)
+        before = launches.read()
+        got = lk_lanes.source_window(*args)
+        torch.cuda.synchronize()
+        counted = {k: m for k, (m, _) in launches.since(before).items() if m}
+        want_counts = {"source_window": 1, **({"extract_warped": 1} if Ms is not None else {})}
+        if counted != want_counts:
+            raise AssertionError(f"K6 {label}: a call launched {counted}, not {want_counts}")
+        want = lk_lanes._source_window_ref(*args)
+        err, near = _k6_check(label, got, want, win)
+        N = p_l.shape[1]
+        ms = _kernel_ms(lambda: lk_lanes.source_window(*args), "source_window")
+        call_ms = cuda_ms(lambda: lk_lanes.source_window(*args))
+        plain_ms = cuda_ms(lambda: lk_lanes._source_window_ref(*args), calls=5)
+        b_ms, b_by = _k6_bound_ms(N, win, Ms is not None)
+        P = lk_lanes._round8(win + 9) if Ms is not None else lk_lanes._round8(win + 5)
+        print(f"K6 {label} (N={N}, win {win}, P {P}, {'cubic' if Ms is not None else 'linear'}"
+              f", level {tuple(img.shape)}): windows bit-equal, sums within {err:.3g} of the "
+              f"trace, {near} points near a gate, {int(want[7].sum())} trackable; kernel "
+              f"{ms:.4f} ms, call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}); {b_ms / ms:.0%} of the bound's rate")
+        rows.append(dict(label=f"K6 {label}", win=win, P=P, cubic=Ms is not None, N=N,
+                         max_abs_err=0.0, sum_err=err, near_gate=near, ms=ms, call_ms=call_ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
+    return rows
+
+
 def _still_levels(dev):
     """(W, H) of every level of a still's two pyramids, largest first: the
     images whose size K1's in-bounds gate reads on the stills path."""
@@ -903,6 +1037,11 @@ def phase_slice(dev, clip, lk_backend, path_kernels, rows):
         r = next(r for r in rows["extract_warped"] if r["P"] == P and r["Q"] == Q)
         print(f"slice {lk_backend}: K5 P {P} Q {Q}: {n} launches x ({r['ms']:.4f} - "
               f"{r['bound_ms']:.4f} ms) = {n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
+    for (win, P, cubic), n in sorted(by_shape["source_window"].items()):
+        r = next(r for r in rows["source_window"] if (r["win"], r["P"], r["cubic"]) == (win, P, cubic))
+        print(f"slice {lk_backend}: K6 win {win} P {P} {'cubic' if cubic else 'linear'}: {n} "
+              f"launches x ({r['ms']:.4f} - {r['bound_ms']:.4f} ms) = "
+              f"{n * (r['ms'] - r['bound_ms']):.2f} ms above the bound")
     _check_run(lk_backend, res, clip, launches, path_kernels, jax_kmh)
     _profile(lambda: run(PROFILE_FRAMES), lk_backend)
     return launches
@@ -985,7 +1124,7 @@ def _graph_matches_eager(dev, label, store):
         k = args[0].shape[1] if args[3].dim() == 3 else len(args[0])
         frames += k
         print(f"graph {label} segment {n} ({k} frames, pts {tuple(args[3].shape)}): captured "
-              f"segment bit-equal to the eager step: {same}; launches K1/K2/K3 counted by "
+              f"segment bit-equal to the eager step: {same}; launches K1-K6 counted by "
               f"the replays {counted}, made by the eager steps {e_counted}")
         if not same or counted != e_counted:
             raise AssertionError(f"graph {label} segment {n}: the captured segment differs "
@@ -999,7 +1138,7 @@ def _replay_profile(dev, graph, inputs, names=()):
     the replay; or an eager step): stream ms between CUDA events (median of
     5), and the device activities of one step under ``torch.profiler``:
     their count, their summed ms, that sum's share of the stream time, and
-    the shares of the annotated functions ``names``."""
+    the shares of the annotated functions ``names`` and of K6's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1022,8 +1161,12 @@ def _replay_profile(dev, graph, inputs, names=()):
     acts = [e for e in events if e.device_type == DeviceType.CUDA
             and not getattr(e, "is_user_annotation", False) and e.name not in names]
     kernel_ms = sum(e.time_range.elapsed_us() for e in acts) / 1e3
+    k6_ms = sum(e.time_range.elapsed_us() for e in acts if "source_window" in e.name) / 1e3
+    shares = _shares(events, names, kernel_ms * 1e3)
+    if k6_ms:
+        shares += f"; K6 (source_window) {k6_ms:.2f} ms = {k6_ms / kernel_ms:.1%} of kernel time"
     return dict(event_ms=event_ms, kernel_ms=kernel_ms, activities=len(acts),
-                busy=kernel_ms / event_ms, shares=_shares(events, names, kernel_ms * 1e3))
+                busy=kernel_ms / event_ms, k6_ms=k6_ms, shares=shares)
 
 
 def _node_count(raw_graph) -> int | None:
@@ -1138,8 +1281,9 @@ def phase_graph(dev, clip):
     rows = []
     for key, gr in seen.items():
         shapes = key[1]
-        k1, k2, k3, k5 = (gr.launches[k][0] for k in ("lk_block", "extract_slabs",
-                                                      "extract_patches", "extract_warped"))
+        k1, k2, k3, k5, k6 = (gr.launches[k][0] for k in ("lk_block", "extract_slabs",
+                                                          "extract_patches", "extract_warped",
+                                                          "source_window"))
         nodes = _node_count(gr.graph.raw_cuda_graph())
         rows.append(dict(frame=list(shapes[0][0]), points=gr.n, backend=key[2].lk_backend,
                          shard_features=key[2].shard_features,
@@ -1147,12 +1291,13 @@ def phase_graph(dev, clip):
                          pool_mb=gr.pool_bytes / 2**20, inputs_mb=gr.input_bytes / 2**20,
                          replays=gr.replays,
                          launches_per_replay=dict(lk_block=k1, extract_slabs=k2,
-                                                  extract_patches=k3, extract_warped=k5)))
+                                                  extract_patches=k3, extract_warped=k5,
+                                                  source_window=k6)))
         print(f"graph: frame {shapes[0][0]} {key[2].lk_backend} shard_features "
               f"{key[2].shard_features} lean {key[5]}: {nodes} nodes, captured in "
               f"{gr.capture_s:.2f} s (warm-up included), pool {gr.pool_bytes / 2**20:.1f} MiB "
               f"and inputs {gr.input_bytes / 2**20:.1f} MiB, "
-              f"{gr.replays} replays so far, per replay K1 {k1} K2 {k2} K3 {k3} K5 {k5}")
+              f"{gr.replays} replays so far, per replay K1 {k1} K2 {k2} K3 {k3} K5 {k5} K6 {k6}")
     print(f"graph: {len(rows)} graphs ({len(step_graph.step_graphs())} kept), frames compared "
           f"{compared}; device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
           f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved now")
@@ -2229,10 +2374,11 @@ def main() -> int:
           f"true speed {clip.speed_kmh:.3f} km/h")
     k4_rows = phase_k4(dev, clip)
     k5_rows = phase_k5(dev, clip)
+    k6_rows = phase_k6(dev, clip)
     rows = {"lk_block": k1_rows, "extract_slabs": k2_rows, "extract_patches": k3_rows,
-            "extract_warped": k5_rows}
+            "extract_warped": k5_rows, "source_window": k6_rows}
     lanes = phase_slice(dev, clip, "lanes", ("lk_block", "extract_slabs", "corner_subpix",
-                                             "extract_warped"), rows)
+                                             "extract_warped", "source_window"), rows)
     fast = phase_slice(dev, clip, "fast", ("extract_patches", "extract_slabs", "corner_subpix"),
                        rows)
     phase_graph(dev, clip)
@@ -2294,6 +2440,14 @@ def main() -> int:
          **{k: k5_rows[0][k] for k in keys}, "library_ms": None,
          "shapes": [{k: r[k] for k in ("label", "N", "ms", "plain_ms", "bound_ms")}
                     for r in k5_rows]},
+        {"name": "source_window", "route": "cuda",
+         "source": "velocity_tpu_torch/csrc/source_window.cu", "replaces": None,
+         "launches": bench["source_window"], "launches_by_path": by_path("source_window"),
+         "max_abs_err": 0.0, "sum_err": max(r["sum_err"] for r in k6_rows),
+         **{k: k6_rows[0][k] for k in keys}, "library_ms": None,
+         "shapes": [{k: r[k] for k in ("label", "N", "ms", "call_ms", "plain_ms", "bound_ms",
+                                       "near_gate")}
+                    for r in k6_rows]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

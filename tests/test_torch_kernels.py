@@ -939,3 +939,261 @@ def test_k5_counts_while_its_caller_is_wrapped(cuda_device, monkeypatch):
     lk_lanes._extract_warped_lanes(*_warped_case("forward", cuda_device, N=64))
     torch.cuda.synchronize()
     assert launches.since(before)["extract_warped"] == (1, {(K5_P, K5_Q): 1})
+
+
+# ------------------------------------------------------------------------ K6
+
+# The source windows of a lanes step: (win, cubic) of stages 1-2 (win 15,
+# P 24, 4 linear taps), stage 3's forward leg (win 51, P 56) and its
+# backward leg (win 51 on K5's P 64 patch, 7 cubic taps)
+K6_SHAPES = {"win15": (15, False), "win51": (51, False), "win51_cubic": (51, True)}
+K6_KEYS = {"win15": (15, 24, False), "win51": (51, 56, False), "win51_cubic": (51, 64, True)}
+K6_THRESH = 1e-4  # the trackers' min_eig_threshold
+# the structure tensor's sums against the plain version's: relative to the
+# tensor's trace (a12 may cancel to 0), the products after them likewise
+K6_RTOL = 1e-5
+
+
+def _k6_case(kind, device="cpu", N=1024, H=270, W=480):
+    """(simg, p_l (2, N), win, Ms) of one level's source window: a textured
+    level (with exact zeros and a block below zero), points inside it and
+    past its edges, at the level's scale as ``lk_pyramidal_lanes`` hands
+    them over (the transposed view of (N, 2) points); "win51_cubic" with
+    the backward leg's shared (2, 3) map; "stack" three levels (V, H, W),
+    win 15, lane-major; "stack_cubic" the same at win 51 with a map a lane,
+    one per point; "edges" win 15 with points on the edges, huge, infinite
+    and NaN."""
+    rng = np.random.default_rng(zlib.crc32(kind.encode()))
+    V = 3 if kind.startswith("stack") else 1
+    img = torch.stack([_warp_image(H, W, seed=v) for v in range(V)]) if V > 1 \
+        else _warp_image(H, W, seed=11)
+    N -= N % V
+    pts = np.stack([rng.uniform(-30, W + 30, N), rng.uniform(-30, H + 30, N)], 1)
+    if kind == "edges":
+        pts[:12] = [[0, 0], [-15, -15], [-16.5, 3], [W - 0.5, H - 0.5], [W + 7.0, 2.0],
+                    [1e9, -1e9], [-1e9, 1e9], [np.inf, 3.0], [np.nan, 5.0], [12.25, np.nan],
+                    [-np.inf, -np.inf], [7.0, 7.0]]
+    win, cubic = K6_SHAPES.get(kind, (51, True) if kind == "stack_cubic" else (15, False))
+    Ms = None
+    if cubic:
+        Ms = (_warp_maps(rng, V).repeat_interleave(N // V, dim=0) if kind == "stack_cubic"
+              else torch.tensor([[1.02, 0.03, 1.7], [-0.02, 0.98, -2.3]]))
+        Ms = Ms.to(device)
+    p_l = torch.as_tensor(pts.astype(np.float32), device=device).T
+    return img.to(device), p_l, win, Ms
+
+
+def _jax_source_window(simg, p_l, win, min_eig_threshold, Ms):
+    """JAX's source window (``velocity_tpu/ops/lk_lanes.py:439-475``, the
+    body of its level loop, from its own functions) on numpy inputs; the
+    windows points-major."""
+    import jax.numpy as jnp
+    from velocity_tpu.ops import lk_lanes as J
+
+    dtype = jnp.float32
+    simg, p_l = jnp.asarray(simg), jnp.asarray(p_l)
+    Hs, Ws = simg.shape
+    half = (win - 1) * 0.5
+    cx, cy = p_l[0], p_l[1]
+    src_margin = 2
+    src_ok = ((jnp.floor(cx - half) >= -win) & (jnp.floor(cy - half) >= -win)
+              & (jnp.floor(cx - half) < Ws) & (jnp.floor(cy - half) < Hs))
+    if Ms is None:
+        Ps = J._round8(win + 2 * src_margin + 1)
+        simgp = J.pad_aligned(simg, Ps)
+        ci = jnp.floor(p_l).astype(jnp.int32)
+        corners = jnp.stack([ci[0] - (win - 1) // 2 - src_margin + Ps,
+                             ci[1] - (win - 1) // 2 - src_margin + Ps], axis=1)
+        spatch, scorner = J._extract_slabs(simgp, corners, Ps)
+        su = cx - half - (scorner[:, 0] - Ps).astype(dtype)
+        sv = cy - half - (scorner[:, 1] - Ps).astype(dtype)
+        s_taps, s_cubic = src_margin + 2, False
+    else:
+        oo_s = (win - 1) // 2 + J.REACH + 1
+        Psw = J._round8(win + 2 * J.REACH + 3)
+        Qs = J._round8(Psw + J.WARP_TAPS)
+        simgp = J.pad_aligned(simg, Qs)
+        spatch, scorner2 = J._extract_warped_lanes(simgp, Qs, p_l, Psw, jnp.asarray(Ms), oo_s)
+        su = cx - half - scorner2[0]
+        sv = cy - half - scorner2[1]
+        s_taps, s_cubic = J.REACH + 4, True
+    sgx, sgy = J._grad_xy(spatch)
+    Ip = J._sample_taps(spatch, sv, su, win, s_taps, cubic=s_cubic)
+    gxp = J._sample_taps(sgx, sv, su, win, s_taps, cubic=s_cubic)
+    gyp = J._sample_taps(sgy, sv, su, win, s_taps, cubic=s_cubic)
+    a11 = jnp.sum(gxp * gxp, axis=(0, 1))
+    a12 = jnp.sum(gxp * gyp, axis=(0, 1))
+    a22 = jnp.sum(gyp * gyp, axis=(0, 1))
+    det = a11 * a22 - a12 * a12
+    tr = a11 + a22
+    min_eig = (tr - jnp.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) * 0.5 / (win * win)
+    eig_ok = (min_eig >= min_eig_threshold * 1024.0) & (det >= jnp.finfo(dtype).tiny * 16)
+    inv_det = jnp.where(det != 0, 1.0 / det, 0.0)
+    pm = lambda a: np.transpose(np.asarray(a), (2, 0, 1))  # noqa: E731
+    return (pm(Ip), pm(gxp), pm(gyp), np.asarray(a11), np.asarray(a12), np.asarray(a22),
+            np.asarray(inv_det), np.asarray(src_ok & eig_ok), np.asarray(min_eig))
+
+
+@pytest.mark.parametrize("kind", list(K6_SHAPES))
+def test_plain_source_window_matches_jax(kind):
+    """The plain source window (K6's twin, on K2's or K5's plain slabs)
+    against JAX's, assembled from the JAX engine's own functions, at the
+    three shapes of a lanes step, points inside the level and past its
+    edges. The windows within XLA's contraction of products into FMAs
+    (rtol 1e-5, atol 2e-3, as K5's twin against JAX's warped windows); the
+    sums over the window, taken in another order, within 1e-4 relative to
+    the tensor's trace; the gate equal but where min_eig lies within that
+    margin of the threshold."""
+    from velocity_tpu_torch.ops import lk_lanes
+
+    simg, p_l, win, Ms = _k6_case(kind, N=96, H=60, W=90)
+    got = lk_lanes._source_window_ref(simg, p_l, win, K6_THRESH, Ms)
+    want = _jax_source_window(simg.numpy(), p_l.numpy(), win, K6_THRESH,
+                              None if Ms is None else Ms.numpy())
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5, atol=2e-3)
+    scale = np.abs(want[3]) + np.abs(want[5])
+    for g, w in zip(got[3:6], want[3:6]):
+        assert (np.abs(g.numpy() - w) <= 1e-4 * scale + 1e-6).all()
+    thr = K6_THRESH * 1024.0
+    near = np.abs(want[8] - thr) <= 1e-4 * scale / win ** 2
+    assert int(want[7].sum()) > 10 and int((~want[7]).sum()) > 10  # both sides of the gate
+    np.testing.assert_array_equal(got[7].numpy()[~near], want[7][~near])
+
+
+@pytest.mark.parametrize("kind", ["win15", "win51_cubic", "stack", "edges"])
+def test_k6_wrapper_on_cpu_is_the_plain_version(kind):
+    """On the CPU ``source_window`` is its plain version bit for bit and
+    launches nothing: a whole lanes call leaves every kernel counter, K6's
+    too, at 0."""
+    from velocity_tpu_torch.ops import launches
+
+    simg, p_l, win, Ms = _k6_case(kind, N=48, H=60, W=90)
+    saved = launches.read()
+    try:
+        launches.set_counts()
+        got = lk_lanes.source_window(simg, p_l, win, K6_THRESH, Ms)
+        if kind == "win15":
+            pts = p_l.T.contiguous()[:24]
+            lk_lanes.lk_forward_backward_lanes(simg, simg + 1.0, pts, fb_threshold=0.3, win=15,
+                                               max_level=2, iters=5, eps=0.01)
+        assert launches.read() == {name: (0, {}) for name in launches.counters()}
+    finally:
+        launches.set_counts(saved)
+    want = lk_lanes._source_window_ref(simg, p_l, win, K6_THRESH, Ms)
+    assert got[0].shape == (p_l.shape[1], win, win) and got[7].dtype == torch.bool
+    for g, w in zip(got, want):
+        assert _same_bits(g, w) if g.is_floating_point() else torch.equal(g, w)
+
+
+def test_k6_wrapper_refuses_bad_inputs():
+    """K6's wrapper refuses a dtype other than float32, points that are not
+    (2, N), a level that is empty or whose stack does not split the points,
+    and a device other than CUDA, before it builds or launches anything
+    (here on meta tensors: the CPU takes the plain version)."""
+    simg, p_l, win, Ms = _k6_case("win51_cubic", N=12, H=60, W=90)
+    img, pts, maps = (t.to("meta") for t in (simg, p_l, Ms))
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk_lanes.source_window(img, pts, win, K6_THRESH, maps)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lk_lanes.source_window(img, pts, win, K6_THRESH, None)
+    bad = [(img, pts.double()), (img, pts.T), (img, pts[:1]), (img.double(), pts),
+           (img[None, None], pts), (img[:0], pts), (img[None].expand(5, -1, -1), pts)]
+    for img_b, pts_b in bad:
+        with pytest.raises(ValueError, match="must be|points on"):
+            lk_lanes.source_window(img_b, pts_b, win, K6_THRESH, None)
+
+
+def _k6_compare(got, want, win):
+    """(near, dmax) after holding K6's results to the plain version's on the
+    card: Ip, gx and gy bit-equal; a11, a12, a22 within K6_RTOL of the
+    trace; det (from the sums) and inv_det within K6_RTOL of the products'
+    size carried through 1 / det; trackable equal but on the points whose
+    min_eig or det lies within that margin of its threshold (``near``)."""
+    for name, g, w in zip(("Ip", "gxp", "gyp"), got[:3], want[:3]):
+        assert _same_bits(g, w), f"{name}: max |err| {float((g - w).abs().nan_to_num().max())}"
+    g11, g12, g22, ginv = (t.double() for t in got[3:7])
+    w11, w12, w22, winv = (t.double() for t in want[3:7])
+    finite = torch.isfinite(w11) & torch.isfinite(w12) & torch.isfinite(w22)
+    assert torch.equal(finite, torch.isfinite(g11) & torch.isfinite(g12) & torch.isfinite(g22))
+    tr = (w11.abs() + w22.abs())[finite]
+    dmax = 0.0
+    for g, w in ((g11, w11), (g12, w12), (g22, w22)):
+        d = (g[finite] - w[finite]).abs()
+        assert bool((d <= K6_RTOL * tr).all()), f"sum off by {float((d / tr).max())} of the trace"
+        dmax = max(dmax, float((d / tr.clamp_min(1e-30)).max()))
+    wdet = (w11 * w22 - w12 * w12)[finite]
+    size = (w11 * w22).abs()[finite] + (w12 * w12)[finite]
+    gdet = (g11 * g22 - g12 * g12)[finite]
+    assert bool(((gdet - wdet).abs() <= 4 * K6_RTOL * size).all())
+    carried = 4 * K6_RTOL * size / wdet.abs().clamp_min(1e-30)  # det's margin through 1 / det
+    ok = (ginv[finite] - winv[finite]).abs() <= carried * winv[finite].abs() * 1.01 + 1e-30
+    assert bool((ok | (wdet.abs() <= 4 * K6_RTOL * size)).all())
+    min_eig = ((w11 + w22) - torch.sqrt((w11 - w22) ** 2 + 4 * w12 * w12)) * 0.5 / win ** 2
+    thr = K6_THRESH * 1024.0
+    near = torch.zeros_like(finite)
+    near[finite] = (((min_eig[finite] - thr).abs() <= 2 * K6_RTOL * tr / win ** 2)
+                    | ((wdet - 16 * torch.finfo(torch.float32).tiny).abs() <= 4 * K6_RTOL * size))
+    assert torch.equal(got[7][~near], want[7][~near])
+    return near, dmax
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["win15", "win51", "win51_cubic", "stack", "stack_cubic",
+                                  "edges", "frame_1080p"])
+def test_k6_matches_plain_on_card(cuda_device, kind):
+    """K6 (``source_window`` on a card: one launch, and K5's before it for
+    the backward leg, no host read) against its plain version on the card
+    at the three shapes of a lanes step, on a stack of three levels (win 15,
+    and win 51 with a map a lane), with points on and past the edges, huge
+    and NaN, and on a 1080p level at N 1,024: Ip, gx and gy bit-equal, the
+    sums within K6_RTOL (``_k6_compare``); prints the points near a gate's
+    threshold."""
+    from velocity_tpu_torch.ops import launches
+
+    if kind == "frame_1080p":
+        simg, p_l, win, Ms = _k6_case("win15", cuda_device, H=1080, W=1920)
+    else:
+        simg, p_l, win, Ms = _k6_case(kind, cuda_device)
+    saved = launches.read()
+    try:
+        launches.set_counts()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = lk_lanes.source_window(simg, p_l, win, K6_THRESH, Ms)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counts = launches.read()
+    finally:
+        launches.set_counts(saved)
+    key = (win, 64 if Ms is not None else 24 if win == 15 else 56, Ms is not None)
+    assert counts["source_window"] == (1, {key: 1})
+    assert counts["extract_warped"][0] == int(Ms is not None)
+    assert counts["extract_slabs"] == (0, {})
+    want = lk_lanes._source_window_ref(simg, p_l, win, K6_THRESH, Ms)
+    near, dmax = _k6_compare(got, want, win)
+    print(f"K6 {kind}: windows bit-equal, sums within {dmax:.3g} of the trace, "
+          f"{int(near.sum())} of {p_l.shape[1]} points near a gate, "
+          f"{int(want[7].sum())} trackable")
+    assert int(want[7].sum()) > 64  # the comparison is not of nothing
+
+
+@pytest.mark.cuda
+def test_k6_calls_agree_bit_for_bit_on_card(cuda_device):
+    """K6's sums run in a fixed order: two calls, and a call captured in a
+    CUDA graph and replayed, give the same bits."""
+    simg, p_l, win, Ms = _k6_case("win51_cubic", cuda_device)
+    first = lk_lanes.source_window(simg, p_l, win, K6_THRESH, Ms)
+    again = lk_lanes.source_window(simg, p_l, win, K6_THRESH, Ms)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+        out = lk_lanes.source_window(simg, p_l, win, K6_THRESH, Ms)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b, c in zip(first, again, out):
+        assert _same_bits(a, b) and _same_bits(a, c) if a.is_floating_point() \
+            else torch.equal(a, b) and torch.equal(a, c)

@@ -217,8 +217,8 @@ def test_library_name_follows_the_sources():
     p = cuda_build.library_path()
     assert p.parent == cuda_build.BUILD_DIR and p.name.startswith("libvt_kernels_")
     assert sorted(s.name for s in cuda_build._sources()) == ["lk_block.cu", "patch.cu",
-                                                             "slab.cu", "subpix.cu",
-                                                             "warp_window.cu"]
+                                                             "slab.cu", "source_window.cu",
+                                                             "subpix.cu", "warp_window.cu"]
     assert [s.name for s in cuda_build._headers()] == ["window.cuh"]
 
 

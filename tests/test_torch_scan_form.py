@@ -303,21 +303,26 @@ def test_loop_form_is_eager_outside_a_capture():
 
 
 def test_launch_counts_move_as_one():
-    """``ops/launches.py`` reads, sets, adds and differences the five
-    wrappers' counters (K5's ``extract_warped`` keyed by (P, Q)) as the
-    graph's capture and replays do."""
+    """``ops/launches.py`` reads, sets, adds and differences the six
+    wrappers' counters (K5's ``extract_warped`` keyed by (P, Q), K6's
+    ``source_window`` by (win, P, cubic)) as the graph's capture and
+    replays do."""
     saved = launches.read()
     try:
         launches.set_counts()
         assert launches.read() == {name: (0, {}) for name in launches.counters()}
         add = {"lk_block": (3, {(15, False): 3}), "extract_slabs": (2, {24: 1, 72: 1}),
                "extract_patches": (0, {}), "corner_subpix": (1, {27: 1}),
-               "extract_warped": (7, {(64, 72): 7})}
+               "extract_warped": (7, {(64, 72): 7}),
+               "source_window": (17, {(15, 24, False): 15, (51, 56, False): 1,
+                                      (51, 64, True): 1})}
         before = launches.read()
         launches.add(add)
         launches.add(add)
         assert launches.counters()["lk_block"].launches == 6
         assert launches.counters()["extract_warped"].launches_by_shape == {(64, 72): 14}
+        assert launches.counters()["source_window"].launches_by_shape == {
+            (15, 24, False): 30, (51, 56, False): 2, (51, 64, True): 2}
         assert launches.since(before) == {name: (2 * n, {k: 2 * m for k, m in by.items()})
                                          for name, (n, by) in add.items()}
         launches.set_counts(before)
@@ -334,9 +339,13 @@ def test_graph_segment_matches_the_eager_step_on_card(clips, lk_backend):
     """On the card ``scan_segment`` replays one captured graph per frame:
     its outputs and carry equal those of the eager step called frame by
     frame with a generator in the same state, bit for bit, on one lane and
-    on two; the kernels' counters read one capture's launches per replay:
-    K5 7 a replay on the lanes backend (stage 3's six forward blocks and
-    the backward leg's source windows), none on the fast one."""
+    on two; the kernels' counters read one capture's launches per replay.
+    On the lanes backend a replay launches K1 42 times (every block of every
+    level), K2 36 (the destination slabs of the linear levels' blocks), K5 7
+    (stage 3's six forward blocks and the backward leg's source windows) and
+    K6 17 (each level's source window: 15 at win 15, stage 3's two at
+    win 51), on one lane and on two alike; the fast backend launches neither
+    K5 nor K6."""
     from velocity_tpu_torch.pipeline import step_graph
 
     cfg = _cfg(lk_backend)
@@ -358,9 +367,18 @@ def test_graph_segment_matches_the_eager_step_on_card(clips, lk_backend):
         before = launches.read()
         carry, outs = scan_segment(seg, pyr, spyr, pts, vg, vp, t0, p3, intr, gens(),
                                    cfg.tracker, cfg.solver, torch.float32)
-        k5 = launches.since(before)["extract_warped"][0]
-        assert k5 == (7 * (seg.shape[1] if lanes > 1 else len(seg))
-                      if lk_backend == "lanes" else 0)
+        steps = seg.shape[1] if lanes > 1 else len(seg)
+        counted = launches.since(before)
+        if lk_backend == "lanes":
+            assert {k: counted[k][0] for k in ("lk_block", "extract_slabs", "extract_warped",
+                                               "source_window")} == {
+                "lk_block": 42 * steps, "extract_slabs": 36 * steps,
+                "extract_warped": 7 * steps, "source_window": 17 * steps}
+            assert counted["source_window"][1] == {(15, 24, False): 15 * steps,
+                                                   (51, 56, False): steps,
+                                                   (51, 64, True): steps}
+        else:
+            assert counted["extract_warped"][0] == counted["source_window"][0] == 0
         g = gens()
         state = (pyr, spyr, pts, vg, vp, t0)
         want = []

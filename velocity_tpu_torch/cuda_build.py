@@ -30,7 +30,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 # (restype, argtypes) of every exported C function; pointers and the stream
 # are c_void_p so that 64-bit addresses are not cut to int. vt_lk_block's
-# masks (trackable, done in, done out) point at torch.bool bytes.
+# masks (trackable, done in, done out) and vt_source_window's trackable
+# point at torch.bool bytes.
 SIGNATURES = {
     "vt_extract_slabs": (_I, [_P, _I, _I, _P, _I, _I, _P, _P, _P]),
     "vt_extract_slabs_batched": (_I, [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _P]),
@@ -41,6 +42,8 @@ SIGNATURES = {
     "vt_corner_subpix": (_I, [_P, _I, _P, _P, _I, _I, _I, _F, _P, _P, _P]),
     "vt_extract_warped": (_I, [_P, _I, _I, _I, _I, _P, _L, _L, _P, _I, _I, _I, _I, _I,
                                _P, _P, _P]),
+    "vt_source_window": (_I, [_P, _I, _I, _I, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _F,
+                              _I, _I, _P, _P, _P, _P]),
 }
 
 _lib = None

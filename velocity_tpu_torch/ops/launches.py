@@ -2,7 +2,8 @@
 
 Each kernel's wrapper (K1 ``lk_block_pallas.lk_block``, K2
 ``slab_pallas.extract_slabs``, K3 ``patch_pallas.extract_patches``, K4
-``harris.corner_subpix``, K5 ``lk_lanes.extract_warped``) adds one to its ``launches`` and to
+``harris.corner_subpix``, K5 ``lk_lanes.extract_warped``, K6
+``lk_lanes.source_window``) adds one to its ``launches`` and to
 ``launches_by_shape[shape]`` where it launches its kernel, and nowhere
 else. A CUDA graph launches its kernels through the
 wrappers only while it is captured: ``pipeline/step_graph.py`` sets the counters
@@ -18,13 +19,13 @@ def counters() -> dict:
     """{kernel name: its wrapper, which carries the counters}."""
     from velocity_tpu_torch.ops.harris import corner_subpix
     from velocity_tpu_torch.ops.lk_block_pallas import lk_block
-    from velocity_tpu_torch.ops.lk_lanes import extract_warped
+    from velocity_tpu_torch.ops.lk_lanes import extract_warped, source_window
     from velocity_tpu_torch.ops.patch_pallas import extract_patches
     from velocity_tpu_torch.ops.slab_pallas import extract_slabs
 
     return {"lk_block": lk_block, "extract_slabs": extract_slabs,
             "extract_patches": extract_patches, "corner_subpix": corner_subpix,
-            "extract_warped": extract_warped}
+            "extract_warped": extract_warped, "source_window": source_window}
 
 
 def read() -> dict:

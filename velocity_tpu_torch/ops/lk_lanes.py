@@ -13,9 +13,10 @@ patch tensor is points-major, ``(N, P, P)``: one point's slab is contiguous,
 which is what a thread block per point reads. Public functions keep JAX's
 layouts (points ``(N, 2)``). Two kernel hooks sit where the JAX engine
 calls Pallas: ``_extract_slabs`` (K2) and the block update in
-``_level_loop`` (K1). A third, ``_extract_warped_lanes`` (K5,
-``csrc/warp_window.cu``), stands where the JAX engine leaves the warped
-windows to XLA's fusion.
+``_level_loop`` (K1). Two more stand where the JAX engine leaves the work
+to XLA's fusion: ``_extract_warped_lanes`` (K5, ``csrc/warp_window.cu``),
+the warped windows, and ``source_window`` (K6, ``csrc/source_window.cu``),
+each level's source window.
 
 JAX's ``run_batch`` vmaps this engine over videos. Here the lanes of a batch
 are written out: the images are stacks (V, H, W) of equal-sized frames, the
@@ -204,6 +205,133 @@ def extract_warped(imgp, pad: int, centers, P: int, M, oo: int):
 extract_warped.launches = 0
 extract_warped.launches_by_shape = {}  # (P, Q) -> launches
 
+SRC_MARGIN = 2  # gradient + bilinear support around the source window
+
+
+def _source_window_ref(simg, p_l, win: int, min_eig_threshold: float, Ms=None):
+    """Plain version of ``source_window`` (K6's twin): one level's source
+    window of every point, fixed for the level's iterations.
+
+    ``simg`` is the level (H, W), or a stack (V, H, W) lane-major; ``p_l``
+    (2, N) the points at the level's scale; ``Ms`` None (an integer-corner
+    slab through K2, sampled with the linear stencil) or the backward leg's
+    source map, one (2, 3) or one per point (the slab warped through it by
+    K5, sampled with the cubic stencil). Returns (Ip, gxp, gyp (N, win,
+    win), a11, a12, a22, inv_det (N,), trackable (N,) bool): the window,
+    its Scharr gradients, its structure tensor and its min-eigenvalue and
+    bounds gate.
+    """
+    dtype = p_l.dtype
+    dev = p_l.device
+    Hs, Ws = simg.shape[-2:]
+    half = (win - 1) * 0.5
+    eig_thresh = torch.full((), min_eig_threshold * 1024.0, dtype=dtype, device=dev)
+    tiny16 = torch.full((), torch.finfo(dtype).tiny * 16, dtype=dtype, device=dev)
+    cx, cy = p_l[0], p_l[1]
+
+    src_ok = (
+        (torch.floor(cx - half) >= -win) & (torch.floor(cy - half) >= -win)
+        & (torch.floor(cx - half) < Ws) & (torch.floor(cy - half) < Hs)
+    )
+
+    # ---- source window: one extraction, fixed fractional sample ----
+    if Ms is None:
+        Ps = _round8(win + 2 * SRC_MARGIN + 1)
+        simgp = _pad_edge(simg, Ps)  # no-clamp guarantee (see _extract_slabs)
+        ci = torch.floor(p_l).to(torch.int32)
+        corners = torch.stack([ci[0] - (win - 1) // 2 - SRC_MARGIN + Ps,
+                               ci[1] - (win - 1) // 2 - SRC_MARGIN + Ps], dim=1)
+        spatch, scorner = _extract_slabs(simgp, corners, Ps)
+        su = cx - half - (scorner[:, 0] - Ps).to(dtype)
+        sv = cy - half - (scorner[:, 1] - Ps).to(dtype)
+        s_taps, s_cubic = SRC_MARGIN + 2, False
+    else:
+        oo_s = (win - 1) // 2 + REACH + 1
+        Psw = _round8(win + 2 * REACH + 3)
+        Qs = _round8(Psw + WARP_TAPS)
+        simgp = _pad_edge(simg, Qs)
+        spatch, scorner2 = _extract_warped_lanes(simgp, Qs, p_l, Psw, Ms, oo_s)
+        su = cx - half - scorner2[0]
+        sv = cy - half - scorner2[1]
+        s_taps, s_cubic = REACH + 4, True  # fixed offset o0 = REACH+1
+    sgx, sgy = _grad_xy(spatch)
+    Ip = _sample_taps(spatch, sv, su, win, s_taps, cubic=s_cubic)
+    gxp = _sample_taps(sgx, sv, su, win, s_taps, cubic=s_cubic)
+    gyp = _sample_taps(sgy, sv, su, win, s_taps, cubic=s_cubic)
+
+    a11 = torch.sum(gxp * gxp, dim=(1, 2))
+    a12 = torch.sum(gxp * gyp, dim=(1, 2))
+    a22 = torch.sum(gyp * gyp, dim=(1, 2))
+    det = a11 * a22 - a12 * a12
+    tr = a11 + a22
+    min_eig = (tr - torch.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) * 0.5 / (win * win)
+    eig_ok = (min_eig >= eig_thresh) & (det >= tiny16)
+    trackable = src_ok & eig_ok
+    inv_det = torch.where(det != 0, 1.0 / det, torch.zeros_like(det))
+    return Ip, gxp, gyp, a11, a12, a22, inv_det, trackable
+
+
+def source_window(simg, p_l, win: int, min_eig_threshold: float, Ms=None):
+    """One level's source window of every point; arguments and results as
+    ``_source_window_ref``'s.
+
+    CPU tensors take the plain version. CUDA ones edge-pad the level, run
+    K5 first where ``Ms`` is given, and launch K6 (``csrc/source_window.cu``:
+    the slab, its gradients, the three samplings and the gate of every point
+    in one kernel; Ip, gxp and gyp are the plain version's bits, the sums
+    the same up to their order), counted in ``launches`` and
+    ``launches_by_shape`` ((win, P, cubic) -> launches). Raises ValueError
+    on inputs K6 does not take (a dtype other than float32, points not
+    (2, N), an empty level or one whose stack does not split the points, a
+    device other than one CUDA device).
+    """
+    dev = p_l.device
+    if dev.type == "cpu":
+        return _source_window_ref(simg, p_l, win, min_eig_threshold, Ms)
+    if p_l.dtype != torch.float32 or p_l.dim() != 2 or p_l.shape[0] != 2:
+        raise ValueError(f"source_window: points must be float32 (2, N), got {p_l.dtype} "
+                         f"{tuple(p_l.shape)}")
+    N = p_l.shape[1]
+    if simg.dtype != torch.float32 or simg.dim() not in (2, 3):
+        raise ValueError(f"source_window: the level must be a float32 (H, W) or (V, H, W), "
+                         f"got {simg.dtype} {tuple(simg.shape)}")
+    Hs, Ws = simg.shape[-2:]
+    V = simg.shape[0] if simg.dim() == 3 else 1
+    if min(Hs, Ws) < 1 or V == 0 or N % V:
+        raise ValueError(f"source_window: {N} points on {V} images of {Hs}x{Ws}")
+    if dev.type != "cuda" or simg.device != dev or (Ms is not None and Ms.device != dev):
+        raise ValueError(f"source_window: unsupported device {dev} (level on {simg.device})")
+    cubic = Ms is not None
+    if cubic:
+        oo = (win - 1) // 2 + REACH + 1
+        P = _round8(win + 2 * REACH + 3)
+        Q = _round8(P + WARP_TAPS)
+        src, corner = _extract_warped_lanes(_pad_edge(simg, Q), Q, p_l, P, Ms, oo)
+        n_taps, shift = REACH + 4, 0
+    else:
+        P = _round8(win + 2 * SRC_MARGIN + 1)
+        src, corner = _pad_edge(simg, P), None
+        n_taps, shift = SRC_MARGIN + 2, P - (win - 1) // 2 - SRC_MARGIN
+    windows = torch.empty((3, N, win, win), dtype=torch.float32, device=dev)
+    sums = torch.empty((4, N), dtype=torch.float32, device=dev)
+    trackable = torch.empty((N,), dtype=torch.bool, device=dev)
+    if N:
+        H, W = src.shape[-2:]
+        rc = cuda_build.library().vt_source_window(
+            src.data_ptr(), V, H, W, None if corner is None else corner.data_ptr(),
+            p_l.data_ptr(), p_l.stride(0), p_l.stride(1), N, win, P, n_taps, int(cubic), shift,
+            min_eig_threshold * 1024.0, Hs, Ws, windows.data_ptr(), sums.data_ptr(),
+            trackable.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        cuda_build.check(rc, "vt_source_window")
+        source_window.launches += 1
+        key = (win, P, cubic)
+        source_window.launches_by_shape[key] = source_window.launches_by_shape.get(key, 0) + 1
+    return (windows[0], windows[1], windows[2], sums[0], sums[1], sums[2], sums[3], trackable)
+
+
+source_window.launches = 0
+source_window.launches_by_shape = {}  # (win, P, cubic) -> launches
+
 
 def _level_loop(
     dimg,
@@ -316,66 +444,22 @@ def lk_pyramidal_lanes(
     N = pts_src.shape[0]
     dev = pts_src.device
     half = (win - 1) * 0.5
-    eig_thresh = torch.full((), min_eig_threshold * 1024.0, dtype=dtype, device=dev)
-    tiny16 = torch.full((), torch.finfo(dtype).tiny * 16, dtype=dtype, device=dev)
 
     ptsT = pts_src.T  # (2, N)
     cur = (guess if guess is not None else pts_src).to(dtype).T
     cur = cur * (1.0 / (1 << max_level))
     status = torch.ones(N, dtype=torch.bool, device=dev)
 
-    src_margin = 2  # gradient + bilinear support around the source window
-
     for level in range(max_level, -1, -1):
         simg, dimg = src_pyr[level], dst_pyr[level]
-        Hs, Ws = simg.shape[-2:]
         scale = 1.0 / (1 << level)
         Md = _per_point(_affine_for_level(warp_dst, level, dtype), N)
         Ms = _per_point(_affine_for_level(warp_src, level, dtype), N)
         p_l = ptsT * scale
-        cx, cy = p_l[0], p_l[1]
-
-        src_ok = (
-            (torch.floor(cx - half) >= -win) & (torch.floor(cy - half) >= -win)
-            & (torch.floor(cx - half) < Ws) & (torch.floor(cy - half) < Hs)
-        )
-
-        # ---- source window: one extraction, fixed fractional sample ----
-        if Ms is None:
-            Ps = _round8(win + 2 * src_margin + 1)
-            simgp = _pad_edge(simg, Ps)  # no-clamp guarantee (see _extract_slabs)
-            ci = torch.floor(p_l).to(torch.int32)
-            corners = torch.stack([ci[0] - (win - 1) // 2 - src_margin + Ps,
-                                   ci[1] - (win - 1) // 2 - src_margin + Ps], dim=1)
-            spatch, scorner = _extract_slabs(simgp, corners, Ps)
-            su = cx - half - (scorner[:, 0] - Ps).to(dtype)
-            sv = cy - half - (scorner[:, 1] - Ps).to(dtype)
-            s_taps, s_cubic = src_margin + 2, False
-        else:
-            oo_s = (win - 1) // 2 + REACH + 1
-            Psw = _round8(win + 2 * REACH + 3)
-            Qs = _round8(Psw + WARP_TAPS)
-            simgp = _pad_edge(simg, Qs)
-            spatch, scorner2 = _extract_warped_lanes(simgp, Qs, p_l, Psw, Ms, oo_s)
-            su = cx - half - scorner2[0]
-            sv = cy - half - scorner2[1]
-            s_taps, s_cubic = REACH + 4, True  # fixed offset o0 = REACH+1
-        sgx, sgy = _grad_xy(spatch)
-        Ip = _sample_taps(spatch, sv, su, win, s_taps, cubic=s_cubic)
-        gxp = _sample_taps(sgx, sv, su, win, s_taps, cubic=s_cubic)
-        gyp = _sample_taps(sgy, sv, su, win, s_taps, cubic=s_cubic)
-
-        a11 = torch.sum(gxp * gxp, dim=(1, 2))
-        a12 = torch.sum(gxp * gyp, dim=(1, 2))
-        a22 = torch.sum(gyp * gyp, dim=(1, 2))
-        det = a11 * a22 - a12 * a12
-        tr = a11 + a22
-        min_eig = (tr - torch.sqrt((a11 - a22) ** 2 + 4.0 * a12 * a12)) * 0.5 / (win * win)
-        eig_ok = (min_eig >= eig_thresh) & (det >= tiny16)
-        trackable = src_ok & eig_ok
+        Ip, gxp, gyp, a11, a12, a22, inv_det, trackable = source_window(
+            simg, p_l, win, min_eig_threshold, Ms)
         if level == 0:
             status = status & trackable
-        inv_det = torch.where(det != 0, 1.0 / det, torch.zeros_like(det))
 
         cur = _level_loop(
             dimg, cur, trackable, Ip, gxp, gyp, a11, a12, a22, inv_det,
