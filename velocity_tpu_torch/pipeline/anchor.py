@@ -37,7 +37,10 @@ def resolve_plate_pose(intr64, q, track_px, cfg: PipelineConfig):
     its plate plane, re-solve the per-frame translations (numpy twin of the
     device solve, with its robust second pass) and keep the branch with the
     lower mean reprojection rms. Returns (pose0, p3_plate (N,3),
-    t_track (k+1,3), res_track (k+1,)), t_track[0] = 0.
+    t_track (k+1,3), res_track (k+1,)), t_track[0] = 0. Inside a driver's
+    run the candidates' solve is the span ``reanchor.plate_pose.polish``,
+    their scoring ``reanchor.plate_pose.score``, and the counter
+    ``plate_pose.candidates`` adds the number scored.
     """
     from velocity_tpu_torch.geometry.plate import license_plate_points
     from velocity_tpu_torch.geometry.projection import image_to_world_plane
@@ -47,7 +50,9 @@ def resolve_plate_pose(intr64, q, track_px, cfg: PipelineConfig):
     k1, N, _ = track_px.shape
     plate = torch.as_tensor(license_plate_points(cfg.plate_country), dtype=F64)
     q64 = torch.as_tensor(q, dtype=F64)
-    cands = plate_pose_candidates(intr64, q64, plate, cfg.solver)
+    with profiling.span("reanchor.plate_pose.polish"):
+        cands = plate_pose_candidates(intr64, q64, plate, cfg.solver)
+    profiling.count("plate_pose.candidates", len(cands))
     p0 = np.nan_to_num(track_px[0].astype(np.float64))
     valid0 = np.isfinite(track_px[0]).all(axis=1)
     boxa = bounding_rect(np.asarray(q), (10**9, 10**9), border=(0, 0))
@@ -75,26 +80,27 @@ def resolve_plate_pose(intr64, q, track_px, cfg: PipelineConfig):
                     tol=scfg.tol, ramp_rate=scfg.ramp_rate)
         return t, rms
 
-    best = None
-    for cand in cands:
-        pw2 = image_to_world_plane(intr64, cand.R, cand.t,
-                                   torch.as_tensor(p0, dtype=F64)).numpy()
-        p3c = (np.concatenate([pw2, np.zeros((N, 1))], 1)
-               @ cand.R.numpy() + cand.t.numpy())
-        t_track = np.zeros((k1, 3))
-        res_track = np.zeros(k1)
-        res_track[0] = float(cand.residual_rms)
-        prev = np.zeros(3)
-        for f in range(1, k1):
-            m = vp0 & np.isfinite(track_px[f]).all(axis=1)
-            pix_f = np.nan_to_num(track_px[f].astype(np.float64))
-            t_f, rms_f = _solve_frame(pix_f, p3c, m, prev)
-            t_track[f] = t_f
-            res_track[f] = rms_f
-            prev = t_f
-        score = float(res_track[1:].mean()) if k1 > 1 else res_track[0]
-        if best is None or score < best[0]:
-            best = (score, cand, p3c, t_track, res_track)
+    with profiling.span("reanchor.plate_pose.score"):
+        best = None
+        for cand in cands:
+            pw2 = image_to_world_plane(intr64, cand.R, cand.t,
+                                       torch.as_tensor(p0, dtype=F64)).numpy()
+            p3c = (np.concatenate([pw2, np.zeros((N, 1))], 1)
+                   @ cand.R.numpy() + cand.t.numpy())
+            t_track = np.zeros((k1, 3))
+            res_track = np.zeros(k1)
+            res_track[0] = float(cand.residual_rms)
+            prev = np.zeros(3)
+            for f in range(1, k1):
+                m = vp0 & np.isfinite(track_px[f]).all(axis=1)
+                pix_f = np.nan_to_num(track_px[f].astype(np.float64))
+                t_f, rms_f = _solve_frame(pix_f, p3c, m, prev)
+                t_track[f] = t_f
+                res_track[f] = rms_f
+                prev = t_f
+            score = float(res_track[1:].mean()) if k1 > 1 else res_track[0]
+            if best is None or score < best[0]:
+                best = (score, cand, p3c, t_track, res_track)
     _score, pose0, p3c, t_track, res_track = best
     return pose0, p3c, t_track, res_track
 
